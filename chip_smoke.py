@@ -3,32 +3,53 @@
 
     python3 chip_smoke.py    # run every phase; needs one card
 
-Phases, each raising on failure (a non-zero exit):
+Phases, each raising on failure (a non-zero exit); no phase's failure is
+caught and nothing falls back to the CPU:
  1. device: the card's name and power limit, torch / CUDA / nvcc / triton
     versions; TF32 off.
- 2. build: both CUDA kernels from ekf_vio_tpu_torch/csrc with nvcc.
+ 2. build: the three CUDA kernels of ekf_vio_tpu_torch/csrc, one nvcc
+    each, started together.
  3. lk_level against its plain twin on the card: bench frames 0 -> 1 at
     160x120 with the 128 seeds ``initialize`` produces (levels 0-2), one
-    640x480 level, and an N = 100 case.  Status identical; points within
-    2e-3 px, err within 1e-2 and min_eig within rtol 1e-3 where tracked.
- 4. fast9 against its plain twin: bitwise on an integer-valued 160x120
-    frame, within 1e-4 on the fractional downscaled frame.
- 5. timings of each kernel and its twin at the main path's shapes: device
-    time (torch.profiler kernel durations) and wall time (CUDA events).
- 6. the main path: ``engine.run_sequence`` over the 240 bench frames
-    downscaled on the card (one warm-up, best of 3), asserting a finite
-    state, more than 10 tracks from frame 5 on, the 'cuda_lk' backend, and
-    the launch counts (3 LK levels per step, one FAST call per frame); and
-    a 10-frame rollout on the card against the same rollout on the CPU.
- 7. a torch.profiler trace of 5 steps: kernels per step, time per layer,
-    the device's busy share, the top device ops.
-The JSON line before the card line gives each kernel's main-path launch
-count and its device time per main-path frame beside its twin's.  The
-line before the last is the card's name and power limit; the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+    640x480 level, an N = 100 case, and rendered 320x240 frames 0 -> 1
+    (levels 0-3).  Status identical; points within 2e-3 px, err within
+    1e-2 and min_eig within rtol 1e-3 where tracked.
+ 4. fast9 against its plain twin: bitwise on integer-valued 160x120 and
+    320x240 frames (margin after / before NMS), within 1e-4 on fractional
+    frames.
+ 5. klt_level against its plain twin: rendered 320x240 frames 0 -> 1 with
+    the 128 seeds of ``initialize_imu``'s detection: levels 0-2 at win 17,
+    level 0 at win 21, seeds within 17 px of the border, NaN and invalid
+    rows, N = 100; the same bar as lk_level.
+ 6. timings of each kernel and its twin: the vision path's 160x120 frame, and one
+    ``track`` call / one FAST call at the slice's 320x240 shapes; device
+    time (torch.profiler kernel durations), wall time (CUDA events), and
+    the roofline bound of the same work.
+ 7. the vision path: ``engine.run_sequence`` over 120 bench frames
+    downscaled on the card (one warm-up, best of 3): finite state, more
+    than 10 tracks from frame 5 on, the 'cuda_lk' backend, the launch
+    counts, and a 10-frame rollout on the card against the CPU.
+ 8. path (a): ``engine.run_sequence_imu`` over 120 rendered 320x240
+    frames at configs/mono_inertial.yaml's values (one warm-up, best of
+    2): 'cuda_lk', lk_level = 4(T-1) and fast9 = T-9 launches, finite
+    state, more than 10 tracks from 5 frames after the initialization,
+    ATE under 0.01 m, and a 15-frame rollout on the card against the CPU.
+ 9. path (b): the same with klt_window_size=17: 'cuda_klt', klt_level =
+    3(T-1) and lk_level = T-1 launches, finite state, more than 10 tracks.
+10. torch.profiler traces of 5 steady-state steps of each path (the
+    vision step, the IMU step): kernels per step, time per ``vio.*``
+    layer, the device's busy share.
+Each path runs with every launch count set to 0 just before it and read
+just after.  The JSON line before the card line lists each kernel with
+its launches on those runs, its largest error against its twin, its
+device time and its twin's at the slice's shapes, and the roofline bound
+of that work.  The line before the last is the card's name and power
+limit; the last line is {"ok": true, "device": {...}}.  Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -40,6 +61,9 @@ import numpy as np
 import torch
 
 W_IN, H_IN = 640, 480
+N_MONO = 120          # rendered frames of the mono-inertial paths
+PEAK_F32 = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
+PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
 
 
 def nvidia_smi_line() -> str:
@@ -68,14 +92,24 @@ def phase_device(card: str) -> None:
 
 
 def phase_build() -> None:
+    """One nvcc per kernel, all started together."""
     from ekf_vio_tpu_torch import cuda_lib
 
-    for name in ("lk_level", "fast9"):
+    names = ("lk_level", "fast9", "klt_level")
+
+    def build(name):
         t0 = time.perf_counter()
         path = cuda_lib.build(name)
+        return path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build, names)))
+    for name in names:
         cuda_lib.load(name)
-        print(f"[build] {name}: {time.perf_counter() - t0:.2f} s -> "
-              f"{os.path.relpath(path)}")
+        path, sec = built[name]
+        print(f"[build] {name}: {sec:.2f} s -> {os.path.relpath(path)}")
+    print(f"[build] all: {time.perf_counter() - t0:.2f} s")
 
 
 def _cam(s: int):
@@ -93,7 +127,7 @@ def _bench_cfg():
                      fast_threshold=30)
 
 
-def phase_lk(frames_small, frames_full, dev) -> float:
+def phase_lk(frames_small, frames_full, mono2, dev) -> float:
     """Kernel A against its twin on identical inputs.  Returns the max
     |Δpoint| over tracked rows."""
     from ekf_vio_tpu_torch import engine
@@ -114,6 +148,13 @@ def phase_lk(frames_small, frames_full, dev) -> float:
     # the full-resolution frame with the seeds scaled up: one 640x480 level
     cases.append(("640x480 level 0 n=128", frames_full[0], frames_full[1],
                   prev_px * 4.0, valid, True))
+    # the slice's 320x240 rendered frames with initialize_imu's seeds
+    mcfg = _mono_cfg()
+    mpx, mvalid = _mono_seeds(mono2[0], mcfg)
+    mp = pyramid.build_pyramid(mono2[0], 3)
+    mc = pyramid.build_pyramid(mono2[1], 3)
+    cases += [(f"320x240 rendered level {lvl} n=128", mp[lvl], mc[lvl],
+               mpx / 2 ** lvl, mvalid, lvl == 0) for lvl in range(4)]
     worst = 0.0
     for name, prev, cur, q, v, gate in cases:
         kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
@@ -142,17 +183,21 @@ def phase_lk(frames_small, frames_full, dev) -> float:
     return worst
 
 
-def phase_fast(frames_small, frames_full) -> float:
-    """Kernel B against its twin.  Returns the max |Δscore|."""
+def phase_fast(frames_small, frames_full, mono2) -> float:
+    """Kernel B against its twin, at both margin orders.  Returns the max
+    |Δscore|."""
     from ekf_vio_tpu_torch.frontend import fast, fast_cuda
 
     cases = [("160x120 integer-valued", torch.round(frames_small[0]), True),
              ("160x120 fractional", frames_small[0], False),
-             ("640x480 fractional", frames_full[0], False)]
+             ("640x480 fractional", frames_full[0], False),
+             ("320x240 rendered integer-valued", torch.round(mono2[0]), True),
+             ("320x240 rendered fractional", mono2[0], False)]
     worst = 0.0
     for name, img, exact in cases:
-        got = fast_cuda.detect_cuda(img.contiguous(), 30.0)
-        ref = fast.detect(img, 30.0)
+        thr = 25.0 if "rendered" in name else 30.0
+        got = fast_cuda.detect_cuda(img.contiguous(), thr)
+        ref = fast.detect(img, thr)
         diff = (got - ref).abs().max().item()
         corners = int((ref > 0).sum().item())
         print(f"[fast] {name}: {corners} corners, max|dscore| {diff:.3e}")
@@ -244,33 +289,50 @@ def phase_timings(frames_small, dev, card: str) -> dict:
     return out
 
 
+def _reset_counts() -> None:
+    from ekf_vio_tpu_torch.frontend import fast_cuda, klt_cuda, lk_cuda
+
+    lk_cuda.launches = fast_cuda.launches = klt_cuda.launches = 0
+
+
+def _counts() -> dict:
+    from ekf_vio_tpu_torch.frontend import fast_cuda, klt_cuda, lk_cuda
+
+    return {"lk_level": lk_cuda.launches, "fast9": fast_cuda.launches,
+            "klt_level": klt_cuda.launches}
+
+
 def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
     from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.frontend import camera, fast_cuda, klt, lk_cuda
+    from ekf_vio_tpu_torch.frontend import (camera, fast_cuda, klt, klt_cuda,
+                                            lk_cuda)
 
     cfg = _bench_cfg()
     s = cfg.inverse_image_scale
     cam = _cam(s)
     small = camera.downscale_image(frames_dev, s).contiguous()
     n = small.shape[0]
-    backend = klt.selected_backend(small.device)
+    backend = klt.selected_backend(small.shape[1:], cfg.max_features, cfg,
+                                   small.device)
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
 
     best = float("inf")
     counts = None
     for rep in range(4):  # one warm-up, then best of 3
-        lk_cuda.launches = 0
-        fast_cuda.launches = 0
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, outs = engine.run_sequence(small, times_dev, cfg, cam)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = (lk_cuda.launches, fast_cuda.launches)
+        all_counts = _counts()
         if counts != (3 * (n - 1), n):
             raise AssertionError(f"launch counts {counts}, expected "
                                  f"{(3 * (n - 1), n)}")
+        if klt_cuda.launches:
+            raise AssertionError("klt_level ran on the vision path")
         if rep:
             best = min(best, dt)
     tracked = outs.num_tracked.cpu().numpy()
@@ -288,7 +350,7 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
     k = 10
     _, gpu = engine.run_sequence(small[:k], times_dev[:k], cfg, cam)
     _, cpu = engine.run_sequence(small[:k].cpu(), times_dev[:k].cpu(), cfg,
-                                 cam)
+                                 cam, device="cpu")
     same_tracked = torch.equal(gpu.num_tracked.cpu(), cpu.num_tracked)
     same_active = torch.equal(gpu.num_active.cpu(), cpu.num_active)
     dmu = (gpu.base_mu.cpu() - cpu.base_mu).abs().max().item()
@@ -297,30 +359,358 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
           f"{dmu:.3e}")
     if not (same_tracked and same_active and dmu < 5e-3):
         raise AssertionError("card and CPU rollouts disagree")
-    return {"fps": fps, "launches": {"lk_level": counts[0],
-                                     "fast9": counts[1]}}
+    return {"fps": fps, "launches": all_counts}
 
 
-def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
-    """torch.profiler over 5 steady-state steps: device kernels per step,
+# --------------------------------------------------------------------------
+# The mono-inertial slice: configs/mono_inertial.yaml on rendered 320x240
+# --------------------------------------------------------------------------
+
+
+def _mono_cfg(win: int = 21):
+    """configs/mono_inertial.yaml's values, built in code (the card's
+    machine may lack PyYAML)."""
+    from ekf_vio_tpu_torch.config import VIOConfig
+
+    return VIOConfig(num_features=100, max_features=128, use_imu=True,
+                     triangulate_new_features=True, vi_init_frames=10,
+                     klt_measurement_variance_px=0.001, q_feature=1e-7,
+                     min_new_feature_dist=10.0, fast_threshold=25,
+                     inverse_image_scale=2, klt_window_size=win)
+
+
+def _mono_seeds(img, cfg):
+    """initialize_imu's frame-0 detection: (px [128, 2], valid [128])."""
+    from ekf_vio_tpu_torch.frontend import replenish
+
+    n = cfg.max_features
+    return replenish.replenish(
+        img, torch.zeros(n, 2, device=img.device),
+        torch.zeros(n, dtype=torch.bool, device=img.device), cfg, n)
+
+
+def _mono_cam(seq):
+    from ekf_vio_tpu_torch.frontend.camera import Camera
+
+    h, w = seq.frames.shape[1:]
+    return Camera.from_K(seq.K, w, h)
+
+
+def _level_cases_agree(name, got, ref, valid) -> float:
+    """The kernel bar on one level: status identical, the same finiteness,
+    points within 2e-3 px, err within 1e-2 and min_eig within rtol 1e-3
+    where tracked.  Returns max |Δpoint| over tracked rows."""
+    g, ok, eig, err = got
+    rg, rok, reig, rerr = ref
+    torch.cuda.synchronize()
+    ok_n, rok_n = ok.cpu().numpy(), rok.cpu().numpy()
+    if not (ok_n == rok_n).all():
+        raise AssertionError(f"[klt] {name}: status differs at rows "
+                             f"{np.nonzero(ok_n != rok_n)[0].tolist()}")
+    if not torch.equal(torch.isfinite(g), torch.isfinite(rg)):
+        raise AssertionError(f"[klt] {name}: finiteness differs")
+    tracked = ok & valid
+    if tracked.sum() < 0.5 * valid.sum():
+        raise AssertionError(f"[klt] {name}: only {int(tracked.sum())} "
+                             f"of {int(valid.sum())} tracked")
+    dp = (g - rg)[tracked].abs().max().item()
+    de = (err - rerr)[tracked].abs().max().item()
+    rel_eig = ((eig - reig)[tracked].abs() / reig[tracked].abs()).max().item()
+    print(f"[klt] {name}: tracked {int(tracked.sum())}/{int(valid.sum())}, "
+          f"status identical, max|dpoint| {dp:.3e} px, max|derr| {de:.3e}, "
+          f"max rel dmin_eig {rel_eig:.3e}")
+    if not (dp <= 2e-3 and de <= 1e-2 and rel_eig <= 1e-3):
+        raise AssertionError(f"[klt] {name}: outside the bar")
+    return dp
+
+
+def phase_klt(mono2) -> float:
+    """klt_level against its twin on the slice's inputs.  Returns the max
+    |Δpoint| over tracked rows."""
+    from ekf_vio_tpu_torch.frontend import klt, klt_cuda, pyramid
+
+    cfg = _mono_cfg(17)
+    px, valid = _mono_seeds(mono2[0], cfg)
+    pp = pyramid.build_pyramid(mono2[0], 3)
+    cp = pyramid.build_pyramid(mono2[1], 3)
+    cases = [(f"win 17 level {lvl} n=128", lvl, 17, px / 2 ** lvl, valid)
+             for lvl in range(3)]
+    cases.append(("win 21 level 0 n=128", 0, 21, px, valid))
+    border = px.clone()
+    border[:6] = torch.tensor([[2.5, 2.5], [316.0, 120.0], [150.0, 236.5],
+                               [10.2, 200.7], [305.3, 8.9], [40.0, 16.0]],
+                              device=px.device)
+    vb = valid.clone()
+    vb[:6] = True
+    cases.append(("win 17 level 0, 6 seeds within 17 px of the border",
+                  0, 17, border, vb))
+    nan = px.clone()
+    nan[5] = float("nan")
+    vn = valid.clone()
+    vn[[5, 9, 11]] = False
+    cases.append(("win 17 level 0, NaN and invalid rows", 0, 17, nan, vn))
+    cases.append(("win 17 level 0 n=100", 0, 17, px[:100].contiguous(),
+                  valid[:100].contiguous()))
+    worst = 0.0
+    for name, lvl, win, q, v in cases:
+        q = q.contiguous()
+        g0 = q.clone()
+        if "NaN" in name:
+            g0[9] = float("nan")
+        kw = dict(win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps,
+                  min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
+        got = klt_cuda.track_level_cuda(pp[lvl], cp[lvl], q, g0, v, **kw)
+        ref = klt.track_level_klt_plain(pp[lvl], cp[lvl], q, g0, v, **kw)
+        worst = max(worst, _level_cases_agree(name, got, ref, v))
+    return worst
+
+
+def _patch_union_bytes(h: int, w: int, x0, y0, p: int) -> int:
+    """Bytes of the distinct f32 pixels that p x p patches at integer
+    origins (x0, y0) [N] read, rows/columns clamped into the image."""
+    ar = torch.arange(p, device=x0.device)
+    ys = (y0[:, None] + ar).clamp(0, h - 1)
+    xs = (x0[:, None] + ar).clamp(0, w - 1)
+    mask = torch.zeros(h, w, dtype=torch.bool, device=x0.device)
+    mask[ys[:, :, None], xs[:, None, :]] = True
+    return int(mask.sum()) * 4
+
+
+def _level_work(prev, q, g, n_iter, win: int, p: int, origin_fn):
+    """(bytes, flops) one LK level must move and do for these inputs:
+    the distinct patch pixels of both images, the per-feature inputs and
+    outputs; Scharr on the prev patch (19 flops a pixel), three template
+    windows and the Hessian (33 a window pixel), the final residual (11),
+    and 14 a window pixel for each iteration this run's data takes."""
+    h, w = prev.shape
+    n = q.shape[0]
+    px, py = origin_fn(q)
+    cx, cy = origin_fn(g)
+    nbytes = (_patch_union_bytes(h, w, px, py, p)
+              + _patch_union_bytes(h, w, cx, cy, p)
+              + n * (8 + 8 + 1) + n * (8 + 1 + 4 + 4))
+    ww = win * win
+    flops = n * (19 * p * p + 44 * ww) + 14 * ww * int(n_iter.sum())
+    return nbytes, flops
+
+
+def _bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / PEAK_HBM, flops / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_slice_timings(mono2, card: str) -> dict:
+    """One ``track`` call's kernel launches at the slice's 320x240 shapes
+    (lk_level: 4 levels at win 21; klt_level: levels 0-2 at win 17) and
+    one FAST call, against their twins: device and wall time, and the
+    roofline bound of the same work.  Returns {name: {...}} in ms."""
+    from ekf_vio_tpu_torch.frontend import (fast, fast_cuda, klt, klt_cuda,
+                                            lk_cuda, pyramid)
+
+    out = {}
+    for name, win, levels in (("lk_level", 21, range(4)),
+                              ("klt_level", 17, range(3))):
+        cfg = _mono_cfg(win)
+        px, valid = _mono_seeds(mono2[0], cfg)
+        pp = pyramid.build_pyramid(mono2[0], 3)
+        cp = pyramid.build_pyramid(mono2[1], 3)
+        qs = [(px / 2 ** lvl).contiguous() for lvl in levels]
+        kw = dict(win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps)
+        if name == "lk_level":
+            kernel_fn, plain_fn = lk_cuda.track_level_cuda, klt.track_level_plain
+            p = win + 11
+            half = (win - 1) // 2
+
+            def origin(pts, lvl_shape, half=half):
+                a = torch.floor(torch.nan_to_num(pts)) - (half + 5)
+                return a[:, 0].long(), a[:, 1].long()
+
+            def extra(lvl):
+                return dict(min_eigen=cfg.klt_min_eigen, gate_eig=lvl == 0)
+        else:
+            kernel_fn, plain_fn = (klt_cuda.track_level_cuda,
+                                   klt.track_level_klt_plain)
+            p = klt_cuda.PATCH
+
+            def origin(pts, lvl_shape):
+                o = klt._klt_origin(pts, *lvl_shape).long()
+                return o[:, 0], o[:, 1]
+
+            def extra(lvl):
+                return dict(min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
+
+        def run(fn):
+            def go():
+                for i, lvl in enumerate(levels):
+                    fn(pp[lvl], cp[lvl], qs[i], qs[i], valid, **kw,
+                       **extra(lvl))
+            return go
+
+        nbytes = flops = 0
+        for i, lvl in enumerate(levels):
+            n_iter = plain_fn(pp[lvl], cp[lvl], qs[i], qs[i], valid, **kw,
+                              **extra(lvl), with_iterations=True)[-1]
+            b, f = _level_work(pp[lvl], qs[i], qs[i], n_iter, win, p,
+                               lambda pts, s=pp[lvl].shape: origin(pts, s))
+            nbytes, flops = nbytes + b, flops + f
+        bound_ms, bound_by = _bound(nbytes, flops)
+        out[name] = {"device": (_device_ms(run(kernel_fn), 200),
+                                _device_ms(run(plain_fn), 5)),
+                     "wall": (_wall_ms(run(kernel_fn), 200),
+                              _wall_ms(run(plain_fn), 5)),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "launches_per_call": len(levels)}
+    img = mono2[0].contiguous()
+    h, w = img.shape
+    # per pixel: 16 ring differences, 32 for |d| - t, 16 arcs of 8 adds,
+    # 16 maxima; NMS 8 comparisons
+    bound_ms, bound_by = _bound(2 * h * w * 4, h * w * 200)
+    out["fast9"] = {
+        "device": (_device_ms(lambda: fast_cuda.detect_cuda(img, 25.0), 200),
+                   _device_ms(lambda: fast.detect(img, 25.0), 50)),
+        "wall": (_wall_ms(lambda: fast_cuda.detect_cuda(img, 25.0), 200),
+                 _wall_ms(lambda: fast.detect(img, 25.0), 50)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "launches_per_call": 1}
+    for name, t in out.items():
+        (kd, td), (kw_, tw) = t["device"], t["wall"]
+        print(f"[time] {name} per call at 320x240, n=128 "
+              f"({t['launches_per_call']} launches): kernel {kd * 1e3:.1f} us "
+              f"device / {kw_ * 1e3:.1f} us wall; plain twin {td * 1e3:.1f} "
+              f"us device / {tw * 1e3:.1f} us wall; bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) ({card})")
+    return out
+
+
+def _ate(seq, outs, start: int) -> float:
+    from ekf_vio_tpu_torch.io.trajectory import ate_rmse
+
+    p_est = outs.base_mu[:, 0:3].cpu().numpy()
+    return ate_rmse(seq.times[start:], p_est, seq.times, seq.gt_pos)
+
+
+def phase_mono_path(seq, win: int, card: str) -> dict:
+    """``run_sequence_imu`` over the rendered sequence on the card (one
+    warm-up, best of 2), with its backend and launch counts asserted."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.frontend import klt
+
+    cfg = _mono_cfg(win)
+    cam = _mono_cam(seq)
+    k0 = cfg.vi_init_frames
+    n = seq.frames.shape[0]
+    h, w = seq.frames.shape[1:]
+    want_backend = "cuda_lk" if win == 21 else "cuda_klt"
+    backend = klt.selected_backend((h, w), cfg.max_features, cfg, "cuda")
+    if backend != want_backend:
+        raise AssertionError(f"tracker backend: {backend}")
+    want = ({"lk_level": 4 * (n - 1), "fast9": n - k0 + 1, "klt_level": 0}
+            if win == 21 else
+            {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 3 * (n - 1)})
+    args = (seq.frames, seq.times, seq.imu_dt, seq.imu_gyro, seq.imu_accel,
+            seq.gravity_w)
+    dev_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                     for a in args)
+    best = float("inf")
+    for rep in range(3):  # one warm-up, then best of 2
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, outs = engine.run_sequence_imu(*dev_args, cfg, cam,
+                                           init_frames=k0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if rep:
+            best = min(best, dt)
+    tracked = outs.num_tracked.cpu().numpy()
+    if not (torch.isfinite(outs.base_mu).all()
+            and torch.isfinite(es.filt.Sigma).all()):
+        raise AssertionError("non-finite state")
+    if tracked[5:].min() <= 10:
+        raise AssertionError(f"lost tracking: {tracked.tolist()}")
+    ate = _ate(seq, outs, k0)
+    fps = (n - 1) / best
+    tag = "a" if win == 21 else "b"
+    print(f"[path {tag}] run_sequence_imu, {n} rendered frames 320x240, "
+          f"128 slots, win {win}, backend {backend}: {fps:.1f} frames/s "
+          f"(best of 2: {best * 1e3:.1f} ms) on {card}; tracked min "
+          f"{tracked[5:].min()} mean {tracked.mean():.1f}; ATE "
+          f"{ate * 1e3:.2f} mm; launches {counts}")
+    if win == 21 and not ate < 0.01:
+        raise AssertionError(f"ATE {ate:.4f} m is not under 0.01 m")
+    return {"fps": fps, "launches": counts, "ate": ate,
+            "step_ms": 1e3 * best / (n - 1)}
+
+
+def phase_mono_cpu_rollout(seq) -> None:
+    """A 15-frame mono-inertial rollout on the card against the same on
+    the CPU (plain twins): every count equal, base_mu within 5e-3 (GPU
+    matmul order and reduction order compound over the steps)."""
+    from ekf_vio_tpu_torch import engine
+
+    cfg = _mono_cfg()
+    cam = _mono_cam(seq)
+    k = 15
+    args = tuple(a[:m] for a, m in ((seq.frames, k), (seq.times, k),
+                                     (seq.imu_dt, k - 1),
+                                     (seq.imu_gyro, k - 1),
+                                     (seq.imu_accel, k - 1))) + (
+        seq.gravity_w,)
+    _, gpu = engine.run_sequence_imu(*args, cfg, cam,
+                                     init_frames=cfg.vi_init_frames)
+    _, cpu = engine.run_sequence_imu(*args, cfg, cam,
+                                     init_frames=cfg.vi_init_frames,
+                                     device="cpu")
+    same_tracked = torch.equal(gpu.num_tracked.cpu(), cpu.num_tracked)
+    same_active = torch.equal(gpu.num_active.cpu(), cpu.num_active)
+    dmu = (gpu.base_mu.cpu() - cpu.base_mu).abs().max().item()
+    print(f"[path a] {k}-frame rollout, card vs CPU twins: num_tracked "
+          f"{gpu.num_tracked.tolist()} vs {cpu.num_tracked.tolist()}, "
+          f"num_active equal {same_active}, max|dbase_mu| {dmu:.3e}")
+    if not (same_tracked and same_active and dmu < 5e-3):
+        raise AssertionError("card and CPU mono-inertial rollouts disagree")
+
+
+def phase_mono_profile(seq, step_ms: float) -> None:
+    """torch.profiler over 5 steady-state IMU steps of path (a)."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.core import imu
+
+    cfg = _mono_cfg()
+    cam = _mono_cam(seq)
+    t = {k: torch.from_numpy(np.ascontiguousarray(getattr(seq, k))).cuda()
+         for k in ("frames", "times", "imu_dt", "imu_gyro", "imu_accel",
+                   "gravity_w")}
+    k0 = cfg.vi_init_frames
+    es = engine.initialize_imu(t["frames"], t["times"], t["imu_dt"],
+                               t["imu_gyro"], t["imu_accel"], t["gravity_w"],
+                               cfg, cam, k0)
+
+    def steps(es, lo, hi):
+        for i in range(lo, hi):
+            batch = imu.ImuSample(t["imu_dt"][i - 1], t["imu_gyro"][i - 1],
+                                  t["imu_accel"][i - 1])
+            es, _ = engine.step(es, t["frames"][i], t["times"][i], cfg, cam,
+                                imu_batch=batch, gravity_w=t["gravity_w"])
+        return es
+
+    es = steps(es, k0, k0 + 5)
+    _profile_steps(lambda: steps(es, k0 + 5, k0 + 10), step_ms, "imu step")
+
+
+def _profile_steps(run, step_ms: float, what: str) -> None:
+    """torch.profiler over ``run`` (5 steps): device kernels per step,
     host and device time of each ``vio.*`` layer, the device's busy share
-    of a main-path step (``step_ms``), and the top device ops."""
+    of a step of ``step_ms``, and the top device ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.frontend import camera
-
-    cfg = _bench_cfg()
-    cam = _cam(cfg.inverse_image_scale)
-    small = camera.downscale_image(frames_dev[:16], 4).contiguous()
-    es = engine.initialize(small[0], times_dev[0], cfg, cam)
-    for i in range(1, 10):
-        es, _ = engine.step(es, small[i], times_dev[i], cfg, cam)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(10, 15):
-            es, _ = engine.step(es, small[i], times_dev[i], cfg, cam)
+        run()
         torch.cuda.synchronize()
     events = prof.key_averages()
     # device-side events of the vio.* spans are annotations spanning the
@@ -328,19 +718,52 @@ def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
     kernels = [e for e in events if e.device_type.name == "CUDA"
                and not e.key.startswith("vio.")]
     device_us = sum(e.self_device_time_total for e in kernels) / 5
-    print(f"[profile] per step: {sum(e.count for e in kernels) / 5:.0f} "
-          f"device kernels, {device_us:.0f} us of kernel time = "
+    print(f"[profile {what}] per step: "
+          f"{sum(e.count for e in kernels) / 5:.0f} device kernels, "
+          f"{device_us:.0f} us of kernel time = "
           f"{100 * device_us / (step_ms * 1e3):.1f} % of the {step_ms:.2f} ms "
-          f"main-path step")
+          f"step")
     layers = [e for e in events
               if e.key.startswith("vio.") and e.cpu_time_total > 0]
     for e in sorted(layers, key=lambda e: -e.cpu_time_total):
-        print(f"[profile] {e.key}: host {e.cpu_time_total / 5:.0f} us/step "
-              f"(under the profiler), kernels {e.device_time_total / 5:.0f} "
-              f"us/step")
-    table = events.table(sort_by="self_device_time_total", row_limit=15,
+        print(f"[profile {what}] {e.key}: host {e.cpu_time_total / 5:.0f} "
+              f"us/step (under the profiler), kernels "
+              f"{e.device_time_total / 5:.0f} us/step")
+    table = events.table(sort_by="self_device_time_total", row_limit=12,
                           max_name_column_width=60)
-    print("\n".join("[profile] " + line for line in table.splitlines()))
+    print("\n".join(f"[profile {what}] " + line
+                    for line in table.splitlines()))
+
+
+def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
+    """torch.profiler over 5 steady-state steps of the vision path."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.frontend import camera
+
+    cfg = _bench_cfg()
+    cam = _cam(cfg.inverse_image_scale)
+    small = camera.downscale_image(frames_dev[:16], 4).contiguous()
+    es = engine.initialize(small[0], times_dev[0], cfg, cam,
+                           device=small.device)
+    for i in range(1, 10):
+        es, _ = engine.step(es, small[i], times_dev[i], cfg, cam)
+
+    def run():
+        e = es
+        for i in range(10, 15):
+            e, _ = engine.step(e, small[i], times_dev[i], cfg, cam)
+
+    _profile_steps(run, step_ms, "vision step")
+
+
+def _kernel_entry(name, module, route, launches, err, t) -> dict:
+    return {"name": name, "route": route, "source": module.SOURCE,
+            "replaces": module.REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": t["device"][0],
+            "plain_ms": t["device"][1], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "wall_ms": t["wall"][0], "plain_wall_ms": t["wall"][1],
+            "launches_per_call": t["launches_per_call"]}
 
 
 def main() -> int:
@@ -350,36 +773,55 @@ def main() -> int:
     if shutil.which("nvidia-smi") is None:
         print("chip_smoke: nvidia-smi not found", file=sys.stderr)
         return 2
-    from ekf_vio_tpu_torch.frontend import camera, fast_cuda, lk_cuda
+    from ekf_vio_tpu_torch.frontend import (camera, fast_cuda, klt_cuda,
+                                            lk_cuda)
+    from ekf_vio_tpu_torch.sim import rendered
     from ekf_vio_tpu_torch.sim.frames import make_frames
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
     phase_device(card)
     phase_build()
 
-    frames, times = make_frames(seed=0)
+    frames, times = make_frames(seed=0, n_frames=120)
     frames_dev = torch.from_numpy(frames).to(dev)
     times_dev = torch.from_numpy(times).to(dev)
     small2 = camera.downscale_image(frames_dev[:2], 4).contiguous()
-    lk_err = phase_lk(small2, frames_dev[:2], dev)
-    fast_err = phase_fast(small2, frames_dev[:2])
-    timings = phase_timings(small2, dev, card)
-    main_run = phase_main_path(frames_dev, times_dev, dev, card)
-    phase_profile(frames_dev, times_dev, 1e3 / main_run["fps"])
+    seq = rendered.generate(num_frames=N_MONO)
+    mono2 = torch.from_numpy(seq.frames[:2]).to(dev)
+    lk_err = phase_lk(small2, frames_dev[:2], mono2, dev)
+    fast_err = phase_fast(small2, frames_dev[:2], mono2)
+    klt_err = phase_klt(mono2)
+    phase_timings(small2, dev, card)
+    timings = phase_slice_timings(mono2, card)
 
+    vision = phase_main_path(frames_dev, times_dev, dev, card)
+    path_a = phase_mono_path(seq, 21, card)
+    phase_mono_cpu_rollout(seq)
+    path_b = phase_mono_path(seq, 17, card)
+    phase_profile(frames_dev, times_dev, 1e3 / vision["fps"])
+    phase_mono_profile(seq, path_a["step_ms"])
+
+    runs = {"vision": vision["launches"], "path_a": path_a["launches"],
+            "path_b": path_b["launches"]}
+    for name in ("lk_level", "fast9", "klt_level"):
+        if not any(r.get(name, 0) for r in runs.values()):
+            raise AssertionError(f"{name} was never launched on a path")
+    total = {name: sum(r.get(name, 0) for r in runs.values())
+             for name in ("lk_level", "fast9", "klt_level")}
     kernels = [
-        {"name": "lk_level", "route": "cuda", "source": lk_cuda.SOURCE,
-         "replaces": lk_cuda.REPLACES,
-         "launches": main_run["launches"]["lk_level"],
-         "max_abs_err": lk_err, "ms": timings["lk_level"]["device"][0],
-         "plain_ms": timings["lk_level"]["device"][1]},
-        {"name": "fast9", "route": "cuda", "source": fast_cuda.SOURCE,
-         "replaces": fast_cuda.REPLACES,
-         "launches": main_run["launches"]["fast9"],
-         "max_abs_err": fast_err, "ms": timings["fast9"]["device"][0],
-         "plain_ms": timings["fast9"]["device"][1]},
+        _kernel_entry("lk_level", lk_cuda, "cuda", total["lk_level"], lk_err,
+                      timings["lk_level"]),
+        _kernel_entry("fast9", fast_cuda, "cuda", total["fast9"], fast_err,
+                      timings["fast9"]),
+        _kernel_entry("klt_level", klt_cuda, "cuda", total["klt_level"],
+                      klt_err, timings["klt_level"]),
     ]
+    for k in kernels:
+        k["launches_by_path"] = {p: r.get(k["name"], 0)
+                                 for p, r in runs.items()}
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

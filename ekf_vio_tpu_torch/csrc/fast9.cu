@@ -2,23 +2,27 @@
 // border margin for one float32 image, on sm_90a.
 //
 // Replaces the TPU kernel ekf_vio_tpu/frontend/pallas_fast.py
-// _fast_tile_kernel (launched through detect_pallas).  Semantics follow
-// the jnp detector ekf_vio_tpu/frontend/fast.py detect, which the JAX main
-// path runs at 160x120: the ring reads an edge-replicated image, NMS treats
-// outside-the-image as -inf, and the margin is applied AFTER NMS (the
-// Pallas kernel masks before NMS, which can differ next to row/col 3).
-// Plain twin: ekf_vio_tpu_torch/frontend/fast.py detect.
+// _fast_tile_kernel (launched through detect_pallas).  The ring reads an
+// edge-replicated image and NMS treats outside-the-image as -inf.  The
+// margin follows the JAX package's dispatch: with mask_first (frames of
+// at least 128x256 px, where pallas_fast.detect runs the Pallas kernel)
+// the score is zeroed in the margin BEFORE NMS, as that kernel does;
+// otherwise the margin is applied after NMS, as the jnp detector
+// ekf_vio_tpu/frontend/fast.py detect does.  The two differ next to row
+// and column 3.  Plain twin: ekf_vio_tpu_torch/frontend/fast.py detect.
 //
-// What bounds it on an H100: nothing at the main path's 160x120 (19,200
-// pixels, 77 KB in and out); the two launches are bound by launch latency.
-// At 640x480 it is a stencil that reads each pixel ~17 times from L1/L2
-// and writes once, far below the memory roofline.  The design is one
-// thread per pixel with the 16 ring reads served by the caches; a tiled
-// shared-memory version is later work if a larger frame makes it matter.
+// What bounds it on an H100: latency.  At 160x120 and 320x240 (19,200 and
+// 76,800 pixels, at most 0.6 MB in and out, ~200 FLOPs a pixel) both
+// rooflines are a fraction of a microsecond, below the two launches'
+// fixed cost.  At 640x480 it is a stencil that reads each pixel ~17 times
+// from L1/L2 and writes once, far below the memory roofline.  The design
+// is one thread per pixel with the 16 ring reads served by the caches; a
+// tiled shared-memory version is later work if a larger frame makes it
+// matter.
 //
-// C interface: fast9_detect(img, h, w, threshold, score_scratch, out,
-// device, stream) launches both kernels on `stream` of `device` and returns
-// cudaGetLastError().
+// C interface: fast9_detect(img, h, w, threshold, mask_first,
+// score_scratch, out, device, stream) launches both kernels on `stream` of
+// `device` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,11 +41,20 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ bool inside_margin(int y, int x, int h, int w) {
+  return y >= kMargin && y < h - kMargin && x >= kMargin && x < w - kMargin;
+}
+
 __global__ void fast9_score_kernel(const float* __restrict__ img, int h, int w,
-                                   float thr, float* __restrict__ score) {
+                                   float thr, int mask_first,
+                                   float* __restrict__ score) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
+  if (mask_first && !inside_margin(y, x, h, w)) {
+    score[y * w + x] = 0.0f;
+    return;
+  }
   const float c = img[y * w + x];
   float excess[16];
   unsigned bright = 0, dark = 0;
@@ -85,23 +98,21 @@ __global__ void fast9_nms_kernel(const float* __restrict__ score, int h, int w,
     }
   }
   const bool keep = (s >= pooled) && (s > 0.0f);
-  const bool inside = y >= kMargin && y < h - kMargin && x >= kMargin &&
-                      x < w - kMargin;
-  out[y * w + x] = (keep && inside) ? s : 0.0f;
+  out[y * w + x] = (keep && inside_margin(y, x, h, w)) ? s : 0.0f;
 }
 
 }  // namespace
 
 extern "C" int fast9_detect(const void* img, int h, int w, float threshold,
-                            void* score_scratch, void* out, int device,
-                            void* stream) {
+                            int mask_first, void* score_scratch, void* out,
+                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fast9_score_kernel<<<grid, block, 0, s>>>(
-      static_cast<const float*>(img), h, w, threshold,
+      static_cast<const float*>(img), h, w, threshold, mask_first,
       static_cast<float*>(score_scratch));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -4,6 +4,12 @@ Port of ``ekf_vio_tpu/frontend/fast.py`` (cv::FAST with NMS,
 EKFVIO.cpp:242, after the optional blur of EKFVIO.cpp:228-230).  This is
 the plain twin of the ``fast9`` CUDA kernel (``frontend/fast_cuda.py``):
 the CPU path, and what the kernel is compared with on the card.
+
+The 3-px margin follows the JAX package's dispatch
+(``pallas_fast.detect``): from ``MASK_BEFORE_NMS_PIXELS`` up, where the
+JAX package runs its Pallas kernel, the margin is zeroed before NMS, as
+that kernel does; below it, after NMS, as ``fast.detect`` does.  The two
+orders differ next to row and column 3.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ CIRCLE = (
 )
 ARC_LEN = 9  # FAST-9
 MARGIN = 3   # ring radius: border pixels are never corners
+# h*w from which the margin is applied before NMS (pallas_fast._MIN_PIXELS)
+MASK_BEFORE_NMS_PIXELS = 128 * 256
 
 
 def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -64,9 +72,18 @@ def border_mask(score: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, score, 0.0)
 
 
+def mask_before_nms(h: int, w: int) -> bool:
+    """The margin order of the JAX package at an h x w frame."""
+    return h * w >= MASK_BEFORE_NMS_PIXELS
+
+
 def detect(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Full-frame FAST-9 score map, NMS'd, margin applied after NMS."""
-    return border_mask(non_max_suppress(fast_score_map(img, threshold)))
+    """Full-frame FAST-9 score map, NMS'd, with the 3-px margin zeroed
+    before NMS from ``MASK_BEFORE_NMS_PIXELS`` up and after it below."""
+    score = fast_score_map(img, threshold)
+    if mask_before_nms(*img.shape):
+        return non_max_suppress(border_mask(score))
+    return border_mask(non_max_suppress(score))
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float, ksize: int = 5) -> torch.Tensor:

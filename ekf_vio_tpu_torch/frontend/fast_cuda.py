@@ -27,15 +27,16 @@ launches = 0
 def _lib():
     lib = cuda_lib.load("fast9")
     lib.fast9_detect.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_void_p]
+                                 ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_int, ctypes.c_void_p]
     lib.fast9_detect.restype = ctypes.c_int
     return lib
 
 
 def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """NMS'd FAST-9 score map of a [H, W] float32 CUDA image."""
+    """NMS'd FAST-9 score map of a [H, W] float32 CUDA image, with the
+    margin order of ``fast.detect``."""
     global launches
     if not img.is_cuda:
         raise ValueError("detect_cuda needs a CUDA tensor")
@@ -48,6 +49,7 @@ def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
     out = torch.empty_like(img)
     lib = _lib()
     rc = lib.fast9_detect(img.data_ptr(), h, w, float(threshold),
+                          int(fast.mask_before_nms(h, w)),
                           scratch.data_ptr(), out.data_ptr(),
                           img.device.index, cuda_lib.stream_ptr(img))
     cuda_lib.check(lib, rc, "fast9_detect")

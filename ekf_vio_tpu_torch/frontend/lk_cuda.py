@@ -34,7 +34,8 @@ def _lib():
     return lib
 
 
-def _check_inputs(prev, cur, q, g, valid):
+def check_inputs(prev, cur, q, g, valid):
+    """Raise on what the LK kernels do not take."""
     dev = prev.device
     for name, t in (("prev", prev), ("cur", cur), ("q", q), ("g", g),
                     ("valid", valid)):
@@ -64,7 +65,7 @@ def track_level_cuda(prev, cur, q, g, valid, *, win: int, iters: int,
     global launches
     if not prev.is_cuda:
         raise ValueError("track_level_cuda needs CUDA tensors")
-    _check_inputs(prev, cur, q, g, valid)
+    check_inputs(prev, cur, q, g, valid)
     h, w = prev.shape
     n = q.shape[0]
     g_out = torch.empty_like(g)

@@ -19,12 +19,14 @@ from ekf_vio_tpu.config import VIOConfig as JConfig
 from ekf_vio_tpu.frontend import camera as jcam
 from ekf_vio_tpu.frontend import fast as jfast
 from ekf_vio_tpu.frontend import klt as jklt
+from ekf_vio_tpu.frontend import pallas_fast as jpallas_fast
 from ekf_vio_tpu.frontend import pallas_lk as jpallas_lk
 from ekf_vio_tpu.frontend import pyramid as jpyr
 from ekf_vio_tpu.frontend import replenish as jrep
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.frontend import (camera, fast, fast_cuda, klt, lk_cuda,
                                         pyramid, replenish)
+from ekf_vio_tpu_torch.sim import rendered
 from test_torch_kernels import LK_CASES, blocks, lk_case, textured
 
 
@@ -102,6 +104,28 @@ class TestFast:
         np.testing.assert_array_equal(
             _np(fast.border_mask(fast.non_max_suppress(score))),
             _np(jfast.detect(jnp.asarray(img), 30.0)))
+
+    @pytest.mark.parametrize("size", ["240x320", "120x160"])
+    def test_margin_order_follows_jax_dispatch(self, size):
+        """From 128x256 px the margin is zeroed before NMS, bitwise as the
+        Pallas kernel (interpret mode) computes it; below, after NMS, as
+        fast.detect does.  Integer-valued rendered frame 0."""
+        frame = np.round(rendered.generate(num_frames=1).frames[0])
+        if size == "120x160":
+            frame = frame[60:180, 80:240]
+        got = _np(fast_cuda.detect(torch.from_numpy(frame), 25.0))
+        if size == "240x320":
+            ref = _np(jpallas_fast.detect_pallas(jnp.asarray(frame), 25.0,
+                                                 interpret=True))
+            # masking first keeps corners on the first rows/columns inside
+            # the margin that the other order suppresses: the two rules
+            # are told apart on this frame
+            after = _np(jfast.detect(jnp.asarray(frame), 25.0))
+            assert ((ref > 0) & (after == 0)).sum() > 0
+        else:
+            ref = _np(jfast.detect(jnp.asarray(frame), 25.0))
+        assert (ref > 0).sum() > 100
+        np.testing.assert_array_equal(got, ref)
 
     def test_gaussian_blur(self):
         img = textured()
@@ -206,8 +230,10 @@ class TestLK:
                                    rtol=0.02, atol=1e-3)
 
     def test_backend_and_measurement_covariance(self):
-        assert klt.selected_backend("cpu") == "torch"
-        assert klt.selected_backend(torch.device("cuda", 0)) == "cuda_lk"
+        cfg = VIOConfig(max_features=128)
+        assert klt.selected_backend((120, 160), 128, cfg, "cpu") == "torch_lk"
+        assert klt.selected_backend((120, 160), 128, cfg,
+                                    torch.device("cuda", 0)) == "cuda_lk"
         cfg = VIOConfig()
         got = klt.measurement_covariance_metric(114.5, 110.0, 8, cfg)
         ref = jklt.measurement_covariance_metric(114.5, 110.0, 8, JConfig())

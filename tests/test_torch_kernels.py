@@ -5,15 +5,17 @@ on a machine with a card it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Bars: lk_level — status identical, points within 2e-3 px, err within
-1e-2 and min_eig within rtol 1e-3 where tracked (window sums reduce in
-another order); fast9 — bitwise on integer-valued frames, 1e-4 otherwise.
+Bars: lk_level and klt_level — status identical, points within 2e-3 px,
+err within 1e-2 and min_eig within rtol 1e-3 where tracked (window sums
+reduce in another order), the same finiteness of every point; fast9 —
+bitwise on integer-valued frames, 1e-4 otherwise, at both margin orders.
 """
 import numpy as np
 import pytest
 import torch
 
-from ekf_vio_tpu_torch.frontend import fast, fast_cuda, klt, lk_cuda, pyramid
+from ekf_vio_tpu_torch.frontend import (fast, fast_cuda, klt, klt_cuda,
+                                        lk_cuda, pyramid)
 
 
 def _np(x):
@@ -132,9 +134,46 @@ class TestKernelsOnCard:
                 np.testing.assert_allclose(_np(eig)[both], _np(reig)[both],
                                            rtol=1e-3)
 
+    @pytest.mark.parametrize("case", LK_CASES + ["border_origins"])
+    @pytest.mark.parametrize("win", [17, 21])
+    def test_klt_kernel_matches_plain_twin(self, cuda, case, win):
+        if case == "border_origins":  # patch origins clamp into the image
+            prev, cur, q = _scene(h=240, w=320, n=64, seed=7)
+            q = q.copy()
+            q[:6] = [(2.5, 2.5), (316.0, 120.0), (150.0, 236.5),
+                     (10.2, 200.7), (305.3, 8.9), (40.0, 16.0)]
+            init, valid, levels = q + np.float32([0.6, -0.3]), \
+                np.ones(64, bool), 2
+        else:
+            prev, cur, q, init, valid, levels = lk_case(case)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+        pp = pyramid.build_pyramid(t(prev), levels)
+        cp = pyramid.build_pyramid(t(cur), levels)
+        for lvl in range(levels + 1):
+            if min(pp[lvl].shape) < klt_cuda.PATCH:
+                continue
+            s = float(2 ** lvl)
+            args = (pp[lvl], cp[lvl], t(q) / s, t(init) / s, t(valid))
+            kw = dict(win=win, iters=30, eps=0.01,
+                      min_eigen=1e-4 if lvl == 0 else -1.0)
+            g, ok, eig, err = klt_cuda.track_level_cuda(*args, **kw)
+            rg, rok, reig, rerr = klt.track_level_klt_plain(*args, **kw)
+            np.testing.assert_array_equal(_np(ok), _np(rok))
+            np.testing.assert_array_equal(np.isfinite(_np(g)),
+                                          np.isfinite(_np(rg)))
+            both = _np(ok)
+            if both.any():
+                assert np.abs(_np(g) - _np(rg))[both].max() <= 2e-3
+                np.testing.assert_allclose(_np(err)[both], _np(rerr)[both],
+                                           atol=1e-2)
+                np.testing.assert_allclose(_np(eig)[both], _np(reig)[both],
+                                           rtol=1e-3)
+
     @pytest.mark.parametrize("integer", [True, False])
-    def test_fast_kernel_matches_plain_twin(self, cuda, integer):
-        img = blocks() if integer else textured() * 0.5 + blocks() * 0.5
+    @pytest.mark.parametrize("shape", [(120, 160), (240, 320)])
+    def test_fast_kernel_matches_plain_twin(self, cuda, integer, shape):
+        img = blocks(*shape) if integer else (textured(*shape) * 0.5
+                                              + blocks(*shape) * 0.5)
         x = torch.from_numpy(img).to(cuda)
         got = _np(fast_cuda.detect_cuda(x, 30.0))
         ref = _np(fast.detect(x, 30.0))
