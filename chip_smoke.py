@@ -465,32 +465,46 @@ def phase_klt(mono2) -> float:
     return worst
 
 
-def _patch_union_bytes(h: int, w: int, x0, y0, p: int) -> int:
-    """Bytes of the distinct f32 pixels that p x p patches at integer
-    origins (x0, y0) [N] read, rows/columns clamped into the image."""
-    ar = torch.arange(p, device=x0.device)
-    ys = (y0[:, None] + ar).clamp(0, h - 1)
-    xs = (x0[:, None] + ar).clamp(0, w - 1)
-    mask = torch.zeros(h, w, dtype=torch.bool, device=x0.device)
+def _union_bytes(h: int, w: int, corners, size: int) -> int:
+    """Bytes of the distinct f32 pixels in size x size squares at the
+    integer top-left corners [M, 2] (x, y), rows and columns clamped into
+    the image."""
+    ar = torch.arange(size, device=corners.device)
+    ys = (corners[:, 1, None] + ar).clamp(0, h - 1)
+    xs = (corners[:, 0, None] + ar).clamp(0, w - 1)
+    mask = torch.zeros(h, w, dtype=torch.bool, device=corners.device)
     mask[ys[:, :, None], xs[:, None, :]] = True
     return int(mask.sum()) * 4
 
 
-def _level_work(prev, q, g, n_iter, win: int, p: int, origin_fn):
-    """(bytes, flops) one LK level must move and do for these inputs:
-    the distinct patch pixels of both images, the per-feature inputs and
-    outputs; Scharr on the prev patch (19 flops a pixel), three template
-    windows and the Hessian (33 a window pixel), the final residual (11),
-    and 14 a window pixel for each iteration this run's data takes."""
+def _level_work(prev, q, path, win: int):
+    """(bytes, flops) that one LK level must move and do for these inputs,
+    given ``path`` [iters + 1, N, 2], each feature's position after 0, 1,
+    ... iterations.  A win x win window at a fractional centre reads
+    (win + 1)^2 taps.  Bytes: the distinct prev pixels under the taps and
+    their Scharr halo, the distinct cur pixels under the taps at every
+    position a feature takes, the per-feature inputs and outputs.  Flops
+    per feature: Scharr at the taps (12 a tap: smooth, then difference, in
+    x and y); the template and gradient windows (6 a window pixel each,
+    the bilinear blend separated) and the Hessian (6); the final residual
+    (9); and 11 a window pixel (window 6, residual 1, two products 4) for
+    each iteration in which the feature is live, that is, moves."""
     h, w = prev.shape
     n = q.shape[0]
-    px, py = origin_fn(q)
-    cx, cy = origin_fn(g)
-    nbytes = (_patch_union_bytes(h, w, px, py, p)
-              + _patch_union_bytes(h, w, cx, cy, p)
+    half = (win - 1) // 2
+
+    def corners(pts, lo):
+        pts = torch.nan_to_num(pts).clamp(-2 * win, max(h, w) + 2 * win)
+        return torch.floor(pts).long() - lo
+
+    nbytes = (_union_bytes(h, w, corners(q, half + 1), win + 3)
+              + _union_bytes(h, w, corners(path.reshape(-1, 2), half),
+                             win + 1)
               + n * (8 + 8 + 1) + n * (8 + 1 + 4 + 4))
+    live = ((path[1:] != path[:-1]).any(-1)
+            & torch.isfinite(path[1:]).all(-1))
     ww = win * win
-    flops = n * (19 * p * p + 44 * ww) + 14 * ww * int(n_iter.sum())
+    flops = n * (12 * (win + 1) ** 2 + 33 * ww) + 11 * ww * int(live.sum())
     return nbytes, flops
 
 
@@ -519,23 +533,12 @@ def phase_slice_timings(mono2, card: str) -> dict:
         kw = dict(win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps)
         if name == "lk_level":
             kernel_fn, plain_fn = lk_cuda.track_level_cuda, klt.track_level_plain
-            p = win + 11
-            half = (win - 1) // 2
-
-            def origin(pts, lvl_shape, half=half):
-                a = torch.floor(torch.nan_to_num(pts)) - (half + 5)
-                return a[:, 0].long(), a[:, 1].long()
 
             def extra(lvl):
                 return dict(min_eigen=cfg.klt_min_eigen, gate_eig=lvl == 0)
         else:
             kernel_fn, plain_fn = (klt_cuda.track_level_cuda,
                                    klt.track_level_klt_plain)
-            p = klt_cuda.PATCH
-
-            def origin(pts, lvl_shape):
-                o = klt._klt_origin(pts, *lvl_shape).long()
-                return o[:, 0], o[:, 1]
 
             def extra(lvl):
                 return dict(min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
@@ -549,10 +552,13 @@ def phase_slice_timings(mono2, card: str) -> dict:
 
         nbytes = flops = 0
         for i, lvl in enumerate(levels):
-            n_iter = plain_fn(pp[lvl], cp[lvl], qs[i], qs[i], valid, **kw,
-                              **extra(lvl), with_iterations=True)[-1]
-            b, f = _level_work(pp[lvl], qs[i], qs[i], n_iter, win, p,
-                               lambda pts, s=pp[lvl].shape: origin(pts, s))
+            # each feature's path: the plain version stopped after k
+            # iterations, k = 0 ... iters
+            path = torch.stack([
+                plain_fn(pp[lvl], cp[lvl], qs[i], qs[i], valid,
+                         **dict(kw, iters=k), **extra(lvl))[0]
+                for k in range(cfg.klt_iterations + 1)])
+            b, f = _level_work(pp[lvl], qs[i], path, win)
             nbytes, flops = nbytes + b, flops + f
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {"device": (_device_ms(run(kernel_fn), 200),
@@ -563,9 +569,11 @@ def phase_slice_timings(mono2, card: str) -> dict:
                      "launches_per_call": len(levels)}
     img = mono2[0].contiguous()
     h, w = img.shape
-    # per pixel: 16 ring differences, 32 for |d| - t, 16 arcs of 8 adds,
-    # 16 maxima; NMS 8 comparisons
-    bound_ms, bound_by = _bound(2 * h * w * 4, h * w * 200)
+    # per pixel: 16 ring differences, 16 |d| - t, 16 tests of |d| > t
+    # (the sign of d tells bright from dark), the 16 arc sums as one
+    # sliding 9-sum around the ring (8 + 2 x 15), 15 maxima over the arcs,
+    # 8 NMS comparisons: 109
+    bound_ms, bound_by = _bound(2 * h * w * 4, h * w * 109)
     out["fast9"] = {
         "device": (_device_ms(lambda: fast_cuda.detect_cuda(img, 25.0), 200),
                    _device_ms(lambda: fast.detect(img, 25.0), 50)),

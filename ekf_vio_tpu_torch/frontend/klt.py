@@ -105,8 +105,7 @@ def _sample_windows(patch: torch.Tensor, center: torch.Tensor,
 
 
 def track_level_plain(prev, cur, q, g, valid, *, win: int, iters: int,
-                      eps: float, min_eigen: float, gate_eig: bool,
-                      with_iterations: bool = False):
+                      eps: float, min_eigen: float, gate_eig: bool):
     """One pyramid level of LK for all N features in plain PyTorch.
 
     q: [N, 2] positions in this level's prev image; g: [N, 2] guesses in
@@ -115,9 +114,7 @@ def track_level_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     within the search margin (& min_eig > min_eigen when gate_eig).
 
     Runs all ``iters`` iterations with converged features frozen, which
-    gives what an early exit gives without reading the device.  With
-    ``with_iterations`` also returns [N] int: the iterations the kernel
-    runs for each feature (the work its roofline bound counts)."""
+    gives what an early exit gives without reading the device."""
     n = q.shape[0]
     half = (win - 1) // 2
     m = _SEARCH_MARGIN
@@ -149,14 +146,12 @@ def track_level_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     c0 = torch.floor(torch.nan_to_num(g0)) - off
     cur_patch = _extract_patches(cur, c0, p)
     done = torch.zeros_like(valid)
-    n_it = torch.zeros(n, dtype=torch.int32, device=q.device)
     for _ in range(iters):
         r = template - _sample_windows(cur_patch, g - c0, win).reshape(n, -1)
         bx = torch.sum(r * ix, -1)
         by = torch.sum(r * iy, -1)
         delta = torch.stack([i00 * bx + i01 * by, i01 * bx + i11 * by], -1)
         step_ok = valid & ~done & inv_ok
-        n_it = n_it + step_ok.to(torch.int32)
         g = g + torch.where(step_ok[:, None], delta, 0.0)
         done = done | (torch.sum(delta * delta, -1) < eps ** 2)
 
@@ -171,8 +166,6 @@ def track_level_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     ok = valid & in_bounds & inv_ok & within
     if gate_eig:
         ok = ok & (min_eig > min_eigen)
-    if with_iterations:
-        return g, ok, min_eig, err, n_it
     return g, ok, min_eig, err
 
 
@@ -204,8 +197,7 @@ def _klt_gradients(patch: torch.Tensor):
 
 
 def track_level_klt_plain(prev, cur, q, g, valid, *, win: int, iters: int,
-                          eps: float, min_eigen: float,
-                          with_iterations: bool = False):
+                          eps: float, min_eigen: float):
     """One pyramid level of ``pallas_klt._kernel`` in plain PyTorch.
 
     q: [N, 2] positions in this level's prev image; g: [N, 2] guesses in
@@ -215,11 +207,7 @@ def track_level_klt_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     min_eigen — NOT including ``valid``: the caller ANDs it, as
     ``klt.track`` does.  Runs exactly ``iters`` iterations; a feature
     moves while it is live (valid, H invertible, not yet converged), and
-    a non-finite step reaches g even when it is not (NaN x 0 = NaN).
-    With ``with_iterations`` also returns [N] int: the iterations the
-    kernel runs for each feature (those while live, plus the one that
-    finds it frozen)."""
-    n = q.shape[0]
+    a non-finite step reaches g even when it is not (NaN x 0 = NaN)."""
     h, w = prev.shape
     po = _klt_origin(q, h, w)
     co = _klt_origin(g, h, w)
@@ -247,9 +235,7 @@ def track_level_klt_plain(prev, cur, q, g, valid, *, win: int, iters: int,
 
     g0 = g
     live = (valid & inv_ok).to(torch.float32)[:, None]
-    n_live = torch.zeros(n, dtype=torch.int32, device=q.device)
     for _ in range(iters):
-        n_live = n_live + live[:, 0].to(torch.int32)
         r = tpl - _sample_windows(cs, g - co, win)
         bx, by = wsum(r, ix), wsum(r, iy)
         delta = torch.stack([i00 * bx + i01 * by, i01 * bx + i11 * by], -1)
@@ -266,8 +252,6 @@ def track_level_klt_plain(prev, cur, q, g, valid, *, win: int, iters: int,
            & (q[:, 0] >= 1) & (q[:, 1] >= 1)
            & (q[:, 0] < w - 2) & (q[:, 1] < h - 2))
     ok = inb & inv_ok & within & (min_eig > min_eigen)
-    if with_iterations:
-        return g, ok, min_eig, err, torch.clamp(n_live + 1, max=iters)
     return g, ok, min_eig, err
 
 
