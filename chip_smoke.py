@@ -8,30 +8,37 @@ caught and nothing falls back to the CPU:
  1. device: the card's name and power limit, torch / CUDA / nvcc / triton
     versions; TF32 off.
  2. build: the three CUDA kernels of ekf_vio_tpu_torch/csrc, one nvcc
-    each, started together.
- 3. lk_level against its plain twin on the card: bench frames 0 -> 1 at
-    160x120 with the 128 seeds ``initialize`` produces (levels 0-2), one
-    640x480 level, an N = 100 case, and rendered 320x240 frames 0 -> 1
-    (levels 0-3).  Status identical; points within 2e-3 px, err within
-    1e-2 and min_eig within rtol 1e-3 where tracked.
- 4. fast9 against its plain twin: bitwise on integer-valued 160x120 and
-    320x240 frames (margin after / before NMS), within 1e-4 on fractional
-    frames.
+    each, one after another.
+ 3. lk_level against its plain twin on the card, one launch per pyramid
+    call against ``klt.track_pyramid_plain``: bench frames 0 -> 1 at
+    160x120 with the 128 seeds ``initialize`` produces (levels 0-2) and
+    the first 100 of them, one 640x480 level, rendered 320x240 frames
+    0 -> 1 (levels 0-3) and their level 3 alone; and one launch per level
+    (``track_level_cuda``) against ``track_level_plain`` on the same
+    frames.  Status identical; points within 2e-3 px, err within 1e-2
+    and min_eig within rtol 1e-3 where tracked.
+ 4. fast9 against its plain twin: bitwise on integer-valued 160x120,
+    320x240, 117x203 and 235x301 frames (the last two off the tile grid,
+    margin after / before NMS), within 1e-4 on fractional frames.
  5. klt_level against its plain twin: rendered 320x240 frames 0 -> 1 with
     the 128 seeds of ``initialize_imu``'s detection: levels 0-2 at win 17,
     level 0 at win 21, seeds within 17 px of the border, NaN and invalid
     rows, N = 100; the same bar as lk_level.
- 6. timings of each kernel and its twin: the vision path's 160x120 frame, and one
-    ``track`` call / one FAST call at the slice's 320x240 shapes; device
-    time (torch.profiler kernel durations), wall time (CUDA events), and
-    the roofline bound of the same work.
+ 6. timings of each kernel and its twin at the main path's shapes: one
+    ``track`` call of lk_level at 160x120 (3 levels) and 320x240 (4
+    levels), and the same with no iteration, with each level's largest and
+    mean number of iterations in which a feature moves; FAST at 160x120
+    and 320x240; klt_level's 3 levels of path (b).  Device time (torch.profiler kernel
+    durations), wall time (CUDA events), and the roofline bound of the
+    same work.
  7. the vision path: ``engine.run_sequence`` over 120 bench frames
     downscaled on the card (one warm-up, best of 3): finite state, more
     than 10 tracks from frame 5 on, the 'cuda_lk' backend, the launch
-    counts, and a 10-frame rollout on the card against the CPU.
+    counts (lk_level T-1, fast9 T), and a 10-frame rollout on the card
+    against the CPU.
  8. path (a): ``engine.run_sequence_imu`` over 120 rendered 320x240
     frames at configs/mono_inertial.yaml's values (one warm-up, best of
-    2): 'cuda_lk', lk_level = 4(T-1) and fast9 = T-9 launches, finite
+    2): 'cuda_lk', lk_level = T-1 and fast9 = T-9 launches, finite
     state, more than 10 tracks from 5 frames after the initialization,
     ATE under 0.01 m, and a 15-frame rollout on the card against the CPU.
  9. path (b): the same with klt_window_size=17: 'cuda_klt', klt_level =
@@ -49,7 +56,6 @@ of JAX.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import json
 import os
 import shutil
@@ -92,24 +98,17 @@ def phase_device(card: str) -> None:
 
 
 def phase_build() -> None:
-    """One nvcc per kernel, all started together."""
+    """One nvcc per kernel, one after another."""
     from ekf_vio_tpu_torch import cuda_lib
 
-    names = ("lk_level", "fast9", "klt_level")
-
-    def build(name):
+    t_all = time.perf_counter()
+    for name in ("lk_level", "fast9", "klt_level"):
         t0 = time.perf_counter()
         path = cuda_lib.build(name)
-        return path, time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(build, names)))
-    for name in names:
         cuda_lib.load(name)
-        path, sec = built[name]
-        print(f"[build] {name}: {sec:.2f} s -> {os.path.relpath(path)}")
-    print(f"[build] all: {time.perf_counter() - t0:.2f} s")
+        print(f"[build] {name}: {time.perf_counter() - t0:.2f} s -> "
+              f"{os.path.relpath(path)}")
+    print(f"[build] all: {time.perf_counter() - t_all:.2f} s")
 
 
 def _cam(s: int):
@@ -127,59 +126,65 @@ def _bench_cfg():
                      fast_threshold=30)
 
 
-def phase_lk(frames_small, frames_full, mono2, dev) -> float:
-    """Kernel A against its twin on identical inputs.  Returns the max
-    |Δpoint| over tracked rows."""
+def _lk_inputs(frames_small, mono2, dev):
+    """The main path's LK inputs: bench frames 0 -> 1 at 160x120 with the
+    128 seeds of ``initialize``, and rendered 320x240 frames 0 -> 1 with
+    those of ``initialize_imu``'s detection, as {shape: (prev pyramid, cur
+    pyramid, level-0 points [128, 2], valid [128])}."""
     from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.frontend import camera, klt, lk_cuda, pyramid
+    from ekf_vio_tpu_torch.frontend import camera, pyramid
 
     cfg = _bench_cfg()
     cam = _cam(cfg.inverse_image_scale)
     es = engine.initialize(frames_small[0], torch.zeros((), device=dev), cfg,
                            cam)
-    prev_px = camera.metric_to_pixel(cam, es.filt.klt_ref)
-    valid = es.filt.active
-    pp = pyramid.build_pyramid(frames_small[0], 3)
-    cp = pyramid.build_pyramid(frames_small[1], 3)
-    cases = [(f"160x120 level {lvl} n=128", pp[lvl], cp[lvl],
-              prev_px / 2 ** lvl, valid, lvl == 0) for lvl in range(3)]
-    cases.append(("160x120 level 0 n=100", pp[0], cp[0],
-                  prev_px[:100].contiguous(), valid[:100].contiguous(), True))
-    # the full-resolution frame with the seeds scaled up: one 640x480 level
-    cases.append(("640x480 level 0 n=128", frames_full[0], frames_full[1],
-                  prev_px * 4.0, valid, True))
-    # the slice's 320x240 rendered frames with initialize_imu's seeds
-    mcfg = _mono_cfg()
-    mpx, mvalid = _mono_seeds(mono2[0], mcfg)
-    mp = pyramid.build_pyramid(mono2[0], 3)
-    mc = pyramid.build_pyramid(mono2[1], 3)
-    cases += [(f"320x240 rendered level {lvl} n=128", mp[lvl], mc[lvl],
-               mpx / 2 ** lvl, mvalid, lvl == 0) for lvl in range(4)]
+    px = camera.metric_to_pixel(cam, es.filt.klt_ref)
+    mpx, mvalid = _mono_seeds(mono2[0], _mono_cfg())
+    return {"160x120": (pyramid.build_pyramid(frames_small[0], 3),
+                        pyramid.build_pyramid(frames_small[1], 3), px,
+                        es.filt.active),
+            "320x240": (pyramid.build_pyramid(mono2[0], 3),
+                        pyramid.build_pyramid(mono2[1], 3), mpx, mvalid)}
+
+
+def phase_lk(inputs, frames_full) -> float:
+    """Kernel A against its twin on identical inputs: one launch per
+    pyramid call, then one per level.  Returns the max |Δpoint| over
+    tracked rows."""
+    from ekf_vio_tpu_torch.frontend import klt, lk_cuda
+
+    cfg = _bench_cfg()
+    pp, cp, px, valid = inputs["160x120"]
+    mp, mc, mpx, mvalid = inputs["320x240"]
+    # (name, prev pyramid, cur pyramid, level-0 points, valid, lo, hi)
+    calls = [("160x120 levels 0-2 n=128", pp, cp, px, valid, 0, 2),
+             ("160x120 levels 0-2 n=100", pp, cp, px[:100].contiguous(),
+              valid[:100].contiguous(), 0, 2),
+             # the full-resolution frame with the seeds scaled up
+             ("640x480 level 0 n=128", [frames_full[0]], [frames_full[1]],
+              px * 4.0, valid, 0, 0),
+             ("320x240 rendered levels 0-3 n=128", mp, mc, mpx, mvalid, 0, 3),
+             ("320x240 rendered level 3 alone n=128", mp, mc, mpx, mvalid, 3,
+              3)]
+    kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
+              eps=cfg.klt_eps, min_eigen=cfg.klt_min_eigen)
     worst = 0.0
-    for name, prev, cur, q, v, gate in cases:
-        kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
-                  eps=cfg.klt_eps, min_eigen=cfg.klt_min_eigen,
-                  gate_eig=gate)
-        q = q.contiguous()
-        g, ok, eig, err = lk_cuda.track_level_cuda(prev, cur, q, q, v, **kw)
-        rg, rok, reig, rerr = klt.track_level_plain(prev, cur, q, q, v, **kw)
-        torch.cuda.synchronize()
-        ok_n, rok_n = ok.cpu().numpy(), rok.cpu().numpy()
-        if not (ok_n == rok_n).all():
-            raise AssertionError(f"[lk] {name}: status differs at rows "
-                                 f"{np.nonzero(ok_n != rok_n)[0].tolist()}")
-        if ok_n.sum() < 0.5 * v.sum().item():
-            raise AssertionError(f"[lk] {name}: only {ok_n.sum()} tracked")
-        m = ok
-        dp = (g - rg)[m].abs().max().item()
-        de = (err - rerr)[m].abs().max().item()
-        rel_eig = ((eig - reig)[m].abs() / reig[m].abs()).max().item()
-        print(f"[lk] {name}: tracked {int(ok_n.sum())}/{int(v.sum())}, "
-              f"status identical, max|dpoint| {dp:.3e} px, max|derr| "
-              f"{de:.3e}, max rel dmin_eig {rel_eig:.3e}")
-        if not (dp <= 2e-3 and de <= 1e-2 and rel_eig <= 1e-3):
-            raise AssertionError(f"[lk] {name}: outside the bar")
-        worst = max(worst, dp)
+    for name, prev, cur, p0, v, lo, hi in calls:
+        got = lk_cuda.track_pyramid_cuda(prev, cur, p0, p0, v, lo=lo, hi=hi,
+                                         **kw)
+        ref = klt.track_pyramid_plain(prev, cur, p0, p0, v, lo=lo, hi=hi,
+                                      **kw)
+        worst = max(worst, _level_cases_agree("lk", f"pyramid {name}", got,
+                                              ref, v))
+    # one launch per level, each seeded at its own points
+    for name, prev, cur, p0, v, lo, hi in calls[:-1]:
+        for lvl in range(lo, hi + 1):
+            q = (p0 / 2 ** lvl).contiguous()
+            args = (prev[lvl], cur[lvl], q, q, v)
+            got = lk_cuda.track_level_cuda(*args, **kw, gate_eig=lvl == 0)
+            ref = klt.track_level_plain(*args, **kw, gate_eig=lvl == 0)
+            worst = max(worst, _level_cases_agree(
+                "lk", f"{name}: level {lvl} in its own launch", got, ref, v))
     return worst
 
 
@@ -188,11 +193,17 @@ def phase_fast(frames_small, frames_full, mono2) -> float:
     |Δscore|."""
     from ekf_vio_tpu_torch.frontend import fast, fast_cuda
 
+    # sides off the 32 x 8 tile grid, below and above 128x256 px
+    odd = []
+    for h, w in ((117, 203), (235, 301)):
+        crop = frames_full[0][40: 40 + h, 60: 60 + w].contiguous()
+        odd += [(f"{h}x{w} crop integer-valued", torch.round(crop), True),
+                (f"{h}x{w} crop fractional", crop, False)]
     cases = [("160x120 integer-valued", torch.round(frames_small[0]), True),
              ("160x120 fractional", frames_small[0], False),
              ("640x480 fractional", frames_full[0], False),
              ("320x240 rendered integer-valued", torch.round(mono2[0]), True),
-             ("320x240 rendered fractional", mono2[0], False)]
+             ("320x240 rendered fractional", mono2[0], False)] + odd
     worst = 0.0
     for name, img, exact in cases:
         thr = 25.0 if "rendered" in name else 30.0
@@ -243,52 +254,6 @@ def _device_ms(fn, reps: int) -> float:
     return total_us / 1e3 / reps
 
 
-def phase_timings(frames_small, dev, card: str) -> dict:
-    """Per main-path frame at 160x120 with the 128 seeds of
-    ``initialize``: LK's three level launches against the same three
-    levels on the plain twin, and one FAST call against its twin.  Returns
-    {name: {"device": (kernel, twin), "wall": (kernel, twin)}} in ms."""
-    from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.frontend import (camera, fast, fast_cuda, klt,
-                                            lk_cuda, pyramid)
-
-    cfg = _bench_cfg()
-    cam = _cam(cfg.inverse_image_scale)
-    es = engine.initialize(frames_small[0], torch.zeros((), device=dev), cfg,
-                           cam)
-    prev_px = camera.metric_to_pixel(cam, es.filt.klt_ref)
-    valid = es.filt.active
-    pp = pyramid.build_pyramid(frames_small[0], 3)
-    cp = pyramid.build_pyramid(frames_small[1], 3)
-    kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
-              eps=cfg.klt_eps, min_eigen=cfg.klt_min_eigen)
-    qs = [(prev_px / 2 ** lvl).contiguous() for lvl in range(3)]
-
-    def lk(level_fn):
-        def run():
-            for lvl in range(3):
-                level_fn(pp[lvl], cp[lvl], qs[lvl], qs[lvl], valid,
-                         gate_eig=lvl == 0, **kw)
-        return run
-
-    img = frames_small[0].contiguous()
-    fns = {"lk_level": (lk(lk_cuda.track_level_cuda),
-                        lk(klt.track_level_plain), 200, 10),
-           "fast9": (lambda: fast_cuda.detect_cuda(img, 30.0),
-                     lambda: fast.detect(img, 30.0), 200, 50)}
-    out = {}
-    for name, (kernel, twin, k_reps, t_reps) in fns.items():
-        out[name] = {
-            "device": (_device_ms(kernel, k_reps), _device_ms(twin, t_reps)),
-            "wall": (_wall_ms(kernel, k_reps), _wall_ms(twin, t_reps))}
-        (kd, td), (kw_, tw) = out[name]["device"], out[name]["wall"]
-        print(f"[time] {name} per frame at 160x120, n=128: kernel "
-              f"{kd * 1e3:.1f} us device / {kw_ * 1e3:.1f} us wall; plain "
-              f"twin {td * 1e3:.1f} us device / {tw * 1e3:.1f} us wall "
-              f"({card})")
-    return out
-
-
 def _reset_counts() -> None:
     from ekf_vio_tpu_torch.frontend import fast_cuda, klt_cuda, lk_cuda
 
@@ -328,9 +293,9 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
         dt = time.perf_counter() - t0
         counts = (lk_cuda.launches, fast_cuda.launches)
         all_counts = _counts()
-        if counts != (3 * (n - 1), n):
+        if counts != (n - 1, n):
             raise AssertionError(f"launch counts {counts}, expected "
-                                 f"{(3 * (n - 1), n)}")
+                                 f"{(n - 1, n)}")
         if klt_cuda.launches:
             raise AssertionError("klt_level ran on the vision path")
         if rep:
@@ -396,7 +361,7 @@ def _mono_cam(seq):
     return Camera.from_K(seq.K, w, h)
 
 
-def _level_cases_agree(name, got, ref, valid) -> float:
+def _level_cases_agree(tag, name, got, ref, valid) -> float:
     """The kernel bar on one level: status identical, the same finiteness,
     points within 2e-3 px, err within 1e-2 and min_eig within rtol 1e-3
     where tracked.  Returns max |Δpoint| over tracked rows."""
@@ -405,22 +370,22 @@ def _level_cases_agree(name, got, ref, valid) -> float:
     torch.cuda.synchronize()
     ok_n, rok_n = ok.cpu().numpy(), rok.cpu().numpy()
     if not (ok_n == rok_n).all():
-        raise AssertionError(f"[klt] {name}: status differs at rows "
+        raise AssertionError(f"[{tag}] {name}: status differs at rows "
                              f"{np.nonzero(ok_n != rok_n)[0].tolist()}")
     if not torch.equal(torch.isfinite(g), torch.isfinite(rg)):
-        raise AssertionError(f"[klt] {name}: finiteness differs")
+        raise AssertionError(f"[{tag}] {name}: finiteness differs")
     tracked = ok & valid
     if tracked.sum() < 0.5 * valid.sum():
-        raise AssertionError(f"[klt] {name}: only {int(tracked.sum())} "
+        raise AssertionError(f"[{tag}] {name}: only {int(tracked.sum())} "
                              f"of {int(valid.sum())} tracked")
     dp = (g - rg)[tracked].abs().max().item()
     de = (err - rerr)[tracked].abs().max().item()
     rel_eig = ((eig - reig)[tracked].abs() / reig[tracked].abs()).max().item()
-    print(f"[klt] {name}: tracked {int(tracked.sum())}/{int(valid.sum())}, "
+    print(f"[{tag}] {name}: tracked {int(tracked.sum())}/{int(valid.sum())}, "
           f"status identical, max|dpoint| {dp:.3e} px, max|derr| {de:.3e}, "
           f"max rel dmin_eig {rel_eig:.3e}")
     if not (dp <= 2e-3 and de <= 1e-2 and rel_eig <= 1e-3):
-        raise AssertionError(f"[klt] {name}: outside the bar")
+        raise AssertionError(f"[{tag}] {name}: outside the bar")
     return dp
 
 
@@ -461,7 +426,7 @@ def phase_klt(mono2) -> float:
                   min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
         got = klt_cuda.track_level_cuda(pp[lvl], cp[lvl], q, g0, v, **kw)
         ref = klt.track_level_klt_plain(pp[lvl], cp[lvl], q, g0, v, **kw)
-        worst = max(worst, _level_cases_agree(name, got, ref, v))
+        worst = max(worst, _level_cases_agree("klt", name, got, ref, v))
     return worst
 
 
@@ -478,7 +443,8 @@ def _union_bytes(h: int, w: int, corners, size: int) -> int:
 
 
 def _level_work(prev, q, path, win: int):
-    """(bytes, flops) that one LK level must move and do for these inputs,
+    """(bytes, flops, moves) that one LK level must move and do for these
+    inputs, and each feature's number of iterations in which it moves,
     given ``path`` [iters + 1, N, 2], each feature's position after 0, 1,
     ... iterations.  A win x win window at a fractional centre reads
     (win + 1)^2 taps.  Bytes: the distinct prev pixels under the taps and
@@ -501,11 +467,11 @@ def _level_work(prev, q, path, win: int):
               + _union_bytes(h, w, corners(path.reshape(-1, 2), half),
                              win + 1)
               + n * (8 + 8 + 1) + n * (8 + 1 + 4 + 4))
-    live = ((path[1:] != path[:-1]).any(-1)
-            & torch.isfinite(path[1:]).all(-1))
+    moves = ((path[1:] != path[:-1]).any(-1)
+             & torch.isfinite(path[1:]).all(-1)).sum(0)
     ww = win * win
-    flops = n * (12 * (win + 1) ** 2 + 33 * ww) + 11 * ww * int(live.sum())
-    return nbytes, flops
+    flops = n * (12 * (win + 1) ** 2 + 33 * ww) + 11 * ww * int(moves.sum())
+    return nbytes, flops, moves
 
 
 def _bound(nbytes: float, flops: float):
@@ -514,80 +480,148 @@ def _bound(nbytes: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_slice_timings(mono2, card: str) -> dict:
-    """One ``track`` call's kernel launches at the slice's 320x240 shapes
-    (lk_level: 4 levels at win 21; klt_level: levels 0-2 at win 17) and
-    one FAST call, against their twins: device and wall time, and the
-    roofline bound of the same work.  Returns {name: {...}} in ms."""
+def _pyramid_work(pp, cp, px, valid, cfg, lo: int, hi: int):
+    """(bytes, flops, {level: moves}) of one lk_level pyramid call, the
+    guesses chained through the levels as the kernel chains them; each
+    level's path is read off the plain twin stopped after 0, 1, ... iters
+    iterations, and ``moves`` are the iterations in which each feature
+    valid at that level moves."""
+    from ekf_vio_tpu_torch.frontend import klt
+
+    win = cfg.klt_window_size
+    g, ok = px / float(2 ** hi), valid
+    nbytes = flops = 0
+    moves = {}
+    for lvl in range(hi, lo - 1, -1):
+        q = px / float(2 ** lvl)
+        runs = [klt.track_level_plain(pp[lvl], cp[lvl], q, g, ok, win=win,
+                                      iters=k, eps=cfg.klt_eps,
+                                      min_eigen=cfg.klt_min_eigen,
+                                      gate_eig=lvl == 0)
+                for k in range(cfg.klt_iterations + 1)]
+        b, f, m = _level_work(pp[lvl], q, torch.stack([r[0] for r in runs]),
+                              win)
+        nbytes, flops = nbytes + b, flops + f
+        moves[lvl] = m[ok]
+        g, ok = runs[-1][:2]
+        if lvl > lo:
+            g = g * 2.0
+    return nbytes, flops, moves
+
+
+def _timed(fn, reps: int):
+    """(device ms, wall ms) per call."""
+    return _device_ms(fn, reps), _wall_ms(fn, reps)
+
+
+def _in_turns(variants: dict, reps: int) -> dict:
+    """(device ms, wall ms) of each variant, measured in turns A B B A and
+    averaged over its two turns."""
+    keys = list(variants)
+    got = {k: [] for k in keys}
+    for k in keys + keys[::-1]:
+        got[k].append(_timed(variants[k], reps))
+    return {k: tuple(sum(x) / 2 for x in zip(*v)) for k, v in got.items()}
+
+
+def _us(ms: float) -> str:
+    return f"{ms * 1e3:.1f} us"
+
+
+def phase_timings(inputs, card: str) -> dict:
+    """Each kernel against its twin at the main path's shapes: one
+    lk_level ``track`` call (160x120: 3 levels, the vision path; 320x240: 4
+    levels, path (a)), and the same call with no iteration (its fixed
+    part), one FAST call at both sizes, and klt_level's 3 levels of path
+    (b).  Device and wall time, and the roofline bound of the same work.
+    Returns {name: {shape: {...}}} in ms."""
     from ekf_vio_tpu_torch.frontend import (fast, fast_cuda, klt, klt_cuda,
-                                            lk_cuda, pyramid)
+                                            lk_cuda)
 
-    out = {}
-    for name, win, levels in (("lk_level", 21, range(4)),
-                              ("klt_level", 17, range(3))):
-        cfg = _mono_cfg(win)
-        px, valid = _mono_seeds(mono2[0], cfg)
-        pp = pyramid.build_pyramid(mono2[0], 3)
-        cp = pyramid.build_pyramid(mono2[1], 3)
-        qs = [(px / 2 ** lvl).contiguous() for lvl in levels]
-        kw = dict(win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps)
-        if name == "lk_level":
-            kernel_fn, plain_fn = lk_cuda.track_level_cuda, klt.track_level_plain
+    cfg = _bench_cfg()
+    kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
+              eps=cfg.klt_eps, min_eigen=cfg.klt_min_eigen)
+    out = {"lk_level": {}, "fast9": {}, "klt_level": {}}
+    for shape, hi in (("160x120", 2), ("320x240", 3)):
+        pp, cp, px, valid = inputs[shape]
+        nbytes, flops, moves = _pyramid_work(pp, cp, px, valid, cfg, 0, hi)
+        for lvl, m in moves.items():
+            print(f"[time] lk_level {shape} level {lvl}: a feature moves in "
+                  f"at most {int(m.max())} iterations, {m.float().mean():.2f} "
+                  f"on average ({m.numel()} features)")
+        times = _in_turns({
+            "kernel": lambda: lk_cuda.track_pyramid_cuda(
+                pp, cp, px, px, valid, lo=0, hi=hi, **kw),
+            # the prologue and the gathers alone
+            "0 iterations": lambda: lk_cuda.track_pyramid_cuda(
+                pp, cp, px, px, valid, lo=0, hi=hi, **dict(kw, iters=0))},
+            200)
+        plain = _timed(lambda: klt.track_pyramid_plain(
+            pp, cp, px, px, valid, lo=0, hi=hi, **kw), 5)
+        out["lk_level"][shape] = _entry(times, plain, _bound(nbytes, flops))
+    for shape, thr in (("160x120", 30.0), ("320x240", 25.0)):
+        img = inputs[shape][0][0].contiguous()
+        h, w = img.shape
+        times = {"kernel": _timed(lambda: fast_cuda.detect_cuda(img, thr),
+                                  200)}
+        plain = _timed(lambda: fast.detect(img, thr), 50)
+        # per pixel: 16 ring differences, 16 |d| - t, 16 tests of |d| > t
+        # (the sign of d tells bright from dark), the 16 arc sums as one
+        # sliding 9-sum around the ring (8 + 2 x 15), 15 maxima over the
+        # arcs, 8 NMS comparisons: 109
+        out["fast9"][shape] = _entry(times, plain,
+                                     _bound(2 * h * w * 4, h * w * 109))
 
-            def extra(lvl):
-                return dict(min_eigen=cfg.klt_min_eigen, gate_eig=lvl == 0)
-        else:
-            kernel_fn, plain_fn = (klt_cuda.track_level_cuda,
-                                   klt.track_level_klt_plain)
+    # klt_level: path (b)'s levels 0-2 at win 17, one launch each
+    kcfg = _mono_cfg(17)
+    pp, cp = inputs["320x240"][:2]
+    px, valid = _mono_seeds(pp[0], kcfg)
+    qs = [(px / 2 ** lvl).contiguous() for lvl in range(3)]
+    kkw = dict(win=17, iters=kcfg.klt_iterations, eps=kcfg.klt_eps)
 
-            def extra(lvl):
-                return dict(min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
+    def levels(fn):
+        def run():
+            for lvl in range(3):
+                fn(pp[lvl], cp[lvl], qs[lvl], qs[lvl], valid, **kkw,
+                   min_eigen=kcfg.klt_min_eigen if lvl == 0 else -1.0)
+        return run
 
-        def run(fn):
-            def go():
-                for i, lvl in enumerate(levels):
-                    fn(pp[lvl], cp[lvl], qs[i], qs[i], valid, **kw,
-                       **extra(lvl))
-            return go
+    nbytes = flops = 0
+    for lvl in range(3):
+        path = torch.stack([klt.track_level_klt_plain(
+            pp[lvl], cp[lvl], qs[lvl], qs[lvl], valid, **dict(kkw, iters=k),
+            min_eigen=kcfg.klt_min_eigen if lvl == 0 else -1.0)[0]
+            for k in range(kcfg.klt_iterations + 1)])
+        b, f, _ = _level_work(pp[lvl], qs[lvl], path, 17)
+        nbytes, flops = nbytes + b, flops + f
+    out["klt_level"]["320x240"] = _entry(
+        {"kernel": _timed(levels(klt_cuda.track_level_cuda), 200)},
+        _timed(levels(klt.track_level_klt_plain), 5), _bound(nbytes, flops))
+    out["klt_level"]["320x240"]["launches_per_call"] = 3
 
-        nbytes = flops = 0
-        for i, lvl in enumerate(levels):
-            # each feature's path: the plain version stopped after k
-            # iterations, k = 0 ... iters
-            path = torch.stack([
-                plain_fn(pp[lvl], cp[lvl], qs[i], qs[i], valid,
-                         **dict(kw, iters=k), **extra(lvl))[0]
-                for k in range(cfg.klt_iterations + 1)])
-            b, f = _level_work(pp[lvl], qs[i], path, win)
-            nbytes, flops = nbytes + b, flops + f
-        bound_ms, bound_by = _bound(nbytes, flops)
-        out[name] = {"device": (_device_ms(run(kernel_fn), 200),
-                                _device_ms(run(plain_fn), 5)),
-                     "wall": (_wall_ms(run(kernel_fn), 200),
-                              _wall_ms(run(plain_fn), 5)),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "launches_per_call": len(levels)}
-    img = mono2[0].contiguous()
-    h, w = img.shape
-    # per pixel: 16 ring differences, 16 |d| - t, 16 tests of |d| > t
-    # (the sign of d tells bright from dark), the 16 arc sums as one
-    # sliding 9-sum around the ring (8 + 2 x 15), 15 maxima over the arcs,
-    # 8 NMS comparisons: 109
-    bound_ms, bound_by = _bound(2 * h * w * 4, h * w * 109)
-    out["fast9"] = {
-        "device": (_device_ms(lambda: fast_cuda.detect_cuda(img, 25.0), 200),
-                   _device_ms(lambda: fast.detect(img, 25.0), 50)),
-        "wall": (_wall_ms(lambda: fast_cuda.detect_cuda(img, 25.0), 200),
-                 _wall_ms(lambda: fast.detect(img, 25.0), 50)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "launches_per_call": 1}
-    for name, t in out.items():
-        (kd, td), (kw_, tw) = t["device"], t["wall"]
-        print(f"[time] {name} per call at 320x240, n=128 "
-              f"({t['launches_per_call']} launches): kernel {kd * 1e3:.1f} us "
-              f"device / {kw_ * 1e3:.1f} us wall; plain twin {td * 1e3:.1f} "
-              f"us device / {tw * 1e3:.1f} us wall; bound "
-              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) ({card})")
+    for name, by_shape in out.items():
+        for shape, t in by_shape.items():
+            variants = "; ".join(
+                f"{k}: {_us(d)} device / {_us(wl)} wall"
+                for k, (d, wl) in t["variants"].items())
+            print(f"[time] {name} per call at {shape}, n=128 "
+                  f"({t['launches_per_call']} launch"
+                  f"{'es' if t['launches_per_call'] > 1 else ''}): kernel "
+                  f"{_us(t['device'][0])} device / {_us(t['wall'][0])} wall "
+                  f"[{variants}]; plain twin {_us(t['device'][1])} device / "
+                  f"{_us(t['wall'][1])} wall; bound {t['bound_ms'] * 1e3:.3f} "
+                  f"us ({t['bound_by']}) ({card})")
     return out
+
+
+def _entry(times: dict, plain, bound) -> dict:
+    """One kernel's timing record: the kernel's (device, wall) beside the
+    twin's, every variant's, and the bound."""
+    return {"device": (times["kernel"][0], plain[0]),
+            "wall": (times["kernel"][1], plain[1]),
+            "variants": times,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "launches_per_call": 1}
 
 
 def _ate(seq, outs, start: int) -> float:
@@ -612,7 +646,7 @@ def phase_mono_path(seq, win: int, card: str) -> dict:
     backend = klt.selected_backend((h, w), cfg.max_features, cfg, "cuda")
     if backend != want_backend:
         raise AssertionError(f"tracker backend: {backend}")
-    want = ({"lk_level": 4 * (n - 1), "fast9": n - k0 + 1, "klt_level": 0}
+    want = ({"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 0}
             if win == 21 else
             {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 3 * (n - 1)})
     args = (seq.frames, seq.times, seq.imu_dt, seq.imu_gyro, seq.imu_accel,
@@ -764,14 +798,19 @@ def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
     _profile_steps(run, step_ms, "vision step")
 
 
-def _kernel_entry(name, module, route, launches, err, t) -> dict:
+def _kernel_entry(name, module, route, launches, err, by_shape) -> dict:
+    """The kernel's line: times and bound at 320x240 (the mono-inertial
+    slice, every kernel runs there), and every shape timed under
+    ``by_shape``."""
+    t = by_shape["320x240"]
     return {"name": name, "route": route, "source": module.SOURCE,
             "replaces": module.REPLACES, "launches": launches,
             "max_abs_err": err, "ms": t["device"][0],
             "plain_ms": t["device"][1], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "wall_ms": t["wall"][0], "plain_wall_ms": t["wall"][1],
-            "launches_per_call": t["launches_per_call"]}
+            "launches_per_call": t["launches_per_call"],
+            "by_shape": by_shape}
 
 
 def main() -> int:
@@ -798,11 +837,11 @@ def main() -> int:
     small2 = camera.downscale_image(frames_dev[:2], 4).contiguous()
     seq = rendered.generate(num_frames=N_MONO)
     mono2 = torch.from_numpy(seq.frames[:2]).to(dev)
-    lk_err = phase_lk(small2, frames_dev[:2], mono2, dev)
+    inputs = _lk_inputs(small2, mono2, dev)
+    lk_err = phase_lk(inputs, frames_dev[:2])
     fast_err = phase_fast(small2, frames_dev[:2], mono2)
     klt_err = phase_klt(mono2)
-    phase_timings(small2, dev, card)
-    timings = phase_slice_timings(mono2, card)
+    timings = phase_timings(inputs, card)
 
     vision = phase_main_path(frames_dev, times_dev, dev, card)
     path_a = phase_mono_path(seq, 21, card)

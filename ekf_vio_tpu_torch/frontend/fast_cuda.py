@@ -19,7 +19,7 @@ from ekf_vio_tpu_torch.frontend import fast
 SOURCE = "ekf_vio_tpu_torch/csrc/fast9.cu"
 REPLACES = "ekf_vio_tpu/frontend/pallas_fast.py:43"
 
-# calls that launched the kernel pair (score + NMS) since the last reset
+# kernel launches (one per call) since the last reset
 launches = 0
 
 
@@ -28,15 +28,15 @@ def _lib():
     lib = cuda_lib.load("fast9")
     lib.fast9_detect.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
     lib.fast9_detect.restype = ctypes.c_int
     return lib
 
 
 def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
     """NMS'd FAST-9 score map of a [H, W] float32 CUDA image, with the
-    margin order of ``fast.detect``."""
+    margin order of ``fast.detect``, in one launch."""
     global launches
     if not img.is_cuda:
         raise ValueError("detect_cuda needs a CUDA tensor")
@@ -45,12 +45,10 @@ def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
                          f"{img.dtype} {tuple(img.shape)}")
     img = img.contiguous()
     h, w = img.shape
-    scratch = torch.empty_like(img)
     out = torch.empty_like(img)
     lib = _lib()
     rc = lib.fast9_detect(img.data_ptr(), h, w, float(threshold),
-                          int(fast.mask_before_nms(h, w)),
-                          scratch.data_ptr(), out.data_ptr(),
+                          int(fast.mask_before_nms(h, w)), out.data_ptr(),
                           img.device.index, cuda_lib.stream_ptr(img))
     cuda_lib.check(lib, rc, "fast9_detect")
     launches += 1

@@ -9,8 +9,10 @@ Two level trackers, each a plain PyTorch function and a CUDA kernel:
 
 * ``track_level_plain`` ports the JAX ``_track_level`` (bf16-rounded
   integer-aligned patches of side win + 11, Scharr gradients, bilinear
-  windows, iterations until convergence); its kernel is ``lk_level``
-  (``lk_cuda``), which also stands in for the JAX ``pallas_lk`` tracker.
+  windows, iterations until convergence); ``track_pyramid_plain`` loops
+  it over consecutive levels.  Their kernel is ``lk_level`` (``lk_cuda``),
+  one launch per run of levels, which also stands in for the JAX
+  ``pallas_lk`` tracker.
 * ``track_level_klt_plain`` ports ``pallas_klt._kernel`` (40x40 patches
   at origins clamped into the image, a fixed iteration count with a
   multiplicative live mask); its kernel is ``klt_level`` (``klt_cuda``).
@@ -169,6 +171,29 @@ def track_level_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     return g, ok, min_eig, err
 
 
+def track_pyramid_plain(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
+                        lo: int, hi: int, win: int, iters: int, eps: float,
+                        min_eigen: float):
+    """Levels hi down to lo of ``track_level_plain``, as ``track`` loops
+    over them: the plain twin of one ``lk_level`` pyramid launch.
+
+    prev_pts, init_pts: [N, 2] level-0 px; the guess enters level hi as
+    init_pts / 2**hi and each finer level as twice the coarser result,
+    and ``valid`` of a level is the status of the coarser one.  Returns
+    level lo's (g [N,2] in its px, ok [N] bool, min_eig [N], err [N]),
+    with the min-eigenvalue gate at level 0."""
+    g = init_pts / float(2 ** hi)
+    ok = valid
+    for lvl in range(hi, lo - 1, -1):
+        q = prev_pts / float(2 ** lvl)
+        g, ok, min_eig, err = track_level_plain(
+            prev_pyr[lvl], cur_pyr[lvl], q, g, ok, win=win, iters=iters,
+            eps=eps, min_eigen=min_eigen, gate_eig=lvl == 0)
+        if lvl > lo:
+            g = g * 2.0
+    return g, ok, min_eig, err
+
+
 def _klt_origin(pts: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[N, 2] patch origins floor(nan_to_num(p)) - 17, clamped so the
     40x40 patch lies inside the h x w level (as floats)."""
@@ -301,7 +326,9 @@ def track(prev_pyr: tuple, cur_pyr: tuple, prev_pts: torch.Tensor,
     window are skipped, as cv::buildOpticalFlowPyramid clamps maxLevel.
     Under the 'pallas_klt' rule each level that ``klt_supported`` takes
     runs klt_level (eigen gate at level 0 only, via min_eigen = -1 on
-    coarse levels), every other level lk_level."""
+    coarse levels); every run of consecutive other levels (all levels
+    under the 'lk' rule) is one ``lk_cuda.track_pyramid`` call of up to
+    ``lk_cuda.MAX_LEVELS`` levels."""
     win = cfg.klt_window_size
     n = prev_pts.shape[0]
     top = 0
@@ -309,22 +336,35 @@ def track(prev_pyr: tuple, cur_pyr: tuple, prev_pts: torch.Tensor,
         if min(img.shape) >= win:
             top = lvl
     use_klt = tracker_rule(prev_pyr[0].shape, n, cfg) == "pallas_klt"
-    g = init_pts / float(2 ** top)
+
+    def by_klt(lvl):
+        return use_klt and klt_supported(prev_pyr[lvl].shape, n)
+
+    g = None  # the guess at level `lvl`, once a coarser level has run
     ok = valid
-    for lvl in range(top, -1, -1):
-        q = prev_pts / float(2 ** lvl)
-        if use_klt and klt_supported(prev_pyr[lvl].shape, n):
+    lvl = top
+    while lvl >= 0:
+        lo = lvl  # the finest level of this step
+        if by_klt(lvl):
+            if g is None:
+                g = init_pts / float(2 ** lvl)
             g, inb, min_eig, err = klt_cuda.track_level(
-                prev_pyr[lvl], cur_pyr[lvl], q, g, ok, win=win,
-                iters=cfg.klt_iterations, eps=cfg.klt_eps,
+                prev_pyr[lvl], cur_pyr[lvl], prev_pts / float(2 ** lvl), g,
+                ok, win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps,
                 min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
             ok = ok & inb
         else:
-            g, ok, min_eig, err = lk_cuda.track_level(
-                prev_pyr[lvl], cur_pyr[lvl], q, g, ok, cfg,
-                gate_eig=lvl == 0)
-        if lvl > 0:
+            while (lo > 0 and not by_klt(lo - 1)
+                   and lvl - lo + 1 < lk_cuda.MAX_LEVELS):
+                lo -= 1
+            # the pyramid call takes level-0 guesses; scaling by a power
+            # of two and back is exact
+            init = init_pts if g is None else g * float(2 ** lvl)
+            g, ok, min_eig, err = lk_cuda.track_pyramid(
+                prev_pyr, cur_pyr, prev_pts, init, ok, cfg, lo, lvl)
+        if lo > 0:
             g = g * 2.0
+        lvl = lo - 1
     return TrackResult(points=g, status=ok, error=err, min_eig=min_eig)
 
 

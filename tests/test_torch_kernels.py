@@ -5,10 +5,12 @@ on a machine with a card it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Bars: lk_level and klt_level — status identical, points within 2e-3 px,
-err within 1e-2 and min_eig within rtol 1e-3 where tracked (window sums
-reduce in another order), the same finiteness of every point; fast9 —
-bitwise on integer-valued frames, 1e-4 otherwise, at both margin orders.
+Bars: lk_level (one level per launch, and a whole pyramid per launch) and
+klt_level — status identical, points within 2e-3 px, err within 1e-2 and
+min_eig within rtol 1e-3 where tracked (window sums reduce in another
+order), the same finiteness of every point; fast9 — bitwise on
+integer-valued frames, 1e-4 otherwise, at both margin orders, also on
+sides off the tile grid.
 """
 import numpy as np
 import pytest
@@ -134,6 +136,32 @@ class TestKernelsOnCard:
                 np.testing.assert_allclose(_np(eig)[both], _np(reig)[both],
                                            rtol=1e-3)
 
+    @pytest.mark.parametrize("case", LK_CASES)
+    def test_lk_pyramid_kernel_matches_plain_twin(self, cuda, case):
+        """Every level in one launch against the plain level loop."""
+        prev, cur, q, init, valid, levels = lk_case(case)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+        pp = pyramid.build_pyramid(t(prev), levels)
+        cp = pyramid.build_pyramid(t(cur), levels)
+        kw = dict(lo=0, hi=levels, win=21, iters=30, eps=0.01,
+                  min_eigen=1e-4)
+        before = lk_cuda.launches
+        g, ok, eig, err = lk_cuda.track_pyramid_cuda(
+            pp, cp, t(q), t(init), t(valid), **kw)
+        assert lk_cuda.launches == before + 1
+        rg, rok, reig, rerr = klt.track_pyramid_plain(
+            pp, cp, t(q), t(init), t(valid), **kw)
+        np.testing.assert_array_equal(_np(ok), _np(rok))
+        np.testing.assert_array_equal(np.isfinite(_np(g)),
+                                      np.isfinite(_np(rg)))
+        both = _np(ok)
+        if both.any():
+            assert np.abs(_np(g) - _np(rg))[both].max() <= 2e-3
+            np.testing.assert_allclose(_np(err)[both], _np(rerr)[both],
+                                       atol=1e-2)
+            np.testing.assert_allclose(_np(eig)[both], _np(reig)[both],
+                                       rtol=1e-3)
+
     @pytest.mark.parametrize("case", LK_CASES + ["border_origins"])
     @pytest.mark.parametrize("win", [17, 21])
     def test_klt_kernel_matches_plain_twin(self, cuda, case, win):
@@ -177,6 +205,24 @@ class TestKernelsOnCard:
         x = torch.from_numpy(img).to(cuda)
         got = _np(fast_cuda.detect_cuda(x, 30.0))
         ref = _np(fast.detect(x, 30.0))
+        if integer:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, atol=1e-4)
+
+    @pytest.mark.parametrize("integer", [True, False])
+    @pytest.mark.parametrize("shape", [(117, 203), (235, 301)])
+    def test_fast_kernel_at_sides_off_the_tile(self, cuda, shape, integer):
+        """Frames whose sides are not multiples of the 32 x 8 tile, at
+        both margin orders (117x203 is below 128x256 px, 235x301 above)."""
+        img = blocks(*shape, seed=2, n=80) if integer else (
+            textured(*shape) * 0.5 + blocks(*shape, seed=2, n=80) * 0.5)
+        x = torch.from_numpy(img).to(cuda)
+        before = fast_cuda.launches
+        got = _np(fast_cuda.detect_cuda(x, 30.0))
+        assert fast_cuda.launches == before + 1
+        ref = _np(fast.detect(x, 30.0))
+        assert (ref > 0).sum() > 20
         if integer:
             np.testing.assert_array_equal(got, ref)
         else:
