@@ -8,29 +8,35 @@ caught and nothing falls back to the CPU:
  1. device: the card's name and power limit, torch / CUDA / nvcc / triton
     versions; TF32 off.
  2. build: the three CUDA kernels of ekf_vio_tpu_torch/csrc, one nvcc
-    each, one after another.
- 3. lk_level against its plain twin on the card, one launch per pyramid
-    call against ``klt.track_pyramid_plain``: bench frames 0 -> 1 at
-    160x120 with the 128 seeds ``initialize`` produces (levels 0-2) and
+    each, all started together.
+ 3. lk_level against its plain version on the card, one launch per
+    pyramid call against ``klt.track_pyramid_plain``: bench frames 0 -> 1
+    at 160x120 with the 128 seeds ``initialize`` produces (levels 0-2) and
     the first 100 of them, one 640x480 level, rendered 320x240 frames
-    0 -> 1 (levels 0-3) and their level 3 alone; and one launch per level
+    0 -> 1 (levels 0-3) and their level 3 alone, bench frames at 320x240
+    with the 512 slots of path (c); and one launch per level
     (``track_level_cuda``) against ``track_level_plain`` on the same
     frames.  Status identical; points within 2e-3 px, err within 1e-2
     and min_eig within rtol 1e-3 where tracked.
- 4. fast9 against its plain twin: bitwise on integer-valued 160x120,
+ 4. fast9 against its plain version: bitwise on integer-valued 160x120,
     320x240, 117x203 and 235x301 frames (the last two off the tile grid,
     margin after / before NMS), within 1e-4 on fractional frames.
- 5. klt_level against its plain twin: rendered 320x240 frames 0 -> 1 with
-    the 128 seeds of ``initialize_imu``'s detection: levels 0-2 at win 17,
-    level 0 at win 21, seeds within 17 px of the border, NaN and invalid
-    rows, N = 100; the same bar as lk_level.
- 6. timings of each kernel and its twin at the main path's shapes: one
-    ``track`` call of lk_level at 160x120 (3 levels) and 320x240 (4
-    levels), and the same with no iteration, with each level's largest and
-    mean number of iterations in which a feature moves; FAST at 160x120
-    and 320x240; klt_level's 3 levels of path (b).  Device time (torch.profiler kernel
-    durations), wall time (CUDA events), and the roofline bound of the
-    same work.
+ 5. klt_level against its plain version on rendered 320x240 frames 0 -> 1
+    with the 128 seeds of ``initialize_imu``'s detection: one launch per
+    pyramid call (levels 2-0) against ``klt.track_pyramid_klt_plain`` at
+    win 17 (N = 128, seeds within 17 px of the border, NaN and invalid
+    rows, N = 100) and win 21, then one launch per level against
+    ``track_level_klt_plain``; the same bar as lk_level.
+ 6. timings of each kernel and its plain version at the paths' shapes:
+    one ``track`` call of lk_level at 160x120 (3 levels), 320x240 (4
+    levels) and 320x240 with 512 slots, and of klt_level's 3 levels of
+    path (b) (N = 128 and 512), each also with no iteration, with each
+    level's largest and mean number of iterations in which a feature
+    moves; FAST at 160x120 and 320x240 (rendered and bench frames); the
+    device kernels of one path (b) ``klt.track`` call; the QR of the
+    square-root update's pre-array at 128 and 512 slots.  Device time
+    (torch.profiler kernel durations), wall time (CUDA events), and the
+    roofline bound of the same work.
  7. the vision path: ``engine.run_sequence`` over 120 bench frames
     downscaled on the card (one warm-up, best of 3): finite state, more
     than 10 tracks from frame 5 on, the 'cuda_lk' backend, the launch
@@ -42,17 +48,28 @@ caught and nothing falls back to the CPU:
     state, more than 10 tracks from 5 frames after the initialization,
     ATE under 0.01 m, and a 15-frame rollout on the card against the CPU.
  9. path (b): the same with klt_window_size=17: 'cuda_klt', klt_level =
-    3(T-1) and lk_level = T-1 launches, finite state, more than 10 tracks.
-10. torch.profiler traces of 5 steady-state steps of each path (the
-    vision step, the IMU step): kernels per step, time per ``vio.*``
+    T-1 and lk_level = T-1 launches, finite state, more than 10 tracks.
+10. path (c): ``engine.run_sequence`` at configs/fast_with_insight.yaml
+    with bench.py's overrides (400 features, 512 slots, D = 1558) over
+    120 bench frames at 320x240 (one warm-up, best of 2): 'cuda_lk',
+    lk_level = T-1 and fast9 = T launches, finite state, more than 250
+    tracks on average from frame 10 on, Σ finite, min diag >= -1e-5,
+    asymmetry under 1e-3.
+11. path (d): path (a) with ``square_root_form=True`` (the state carries
+    the Cholesky factor): the backend, launch counts and gates of path
+    (a), ``check_sigma`` on the squared final factor, and a 15-frame
+    rollout on the card against the CPU.
+12. torch.profiler traces of 5 steady-state steps of the vision path and
+    of paths (a), (c) and (d): kernels per step, time per ``vio.*``
     layer, the device's busy share.
-Each path runs with every launch count set to 0 just before it and read
-just after.  The JSON line before the card line lists each kernel with
-its launches on those runs, its largest error against its twin, its
-device time and its twin's at the slice's shapes, and the roofline bound
-of that work.  The line before the last is the card's name and power
-limit; the last line is {"ok": true, "device": {...}}.  Imports nothing
-of JAX.
+Every path runs 120 frames, with every launch count set to 0 just before
+it and read just after.  The JSON line before the card line lists each
+kernel with its launches on those runs, its largest error against its
+plain version, its device time and its plain version's at the slice's
+shapes, and the roofline bound of that work.  The line before the last is
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.  The whole run takes 380 to 430 s on
+an NVIDIA H100 80GB HBM3 (700 W), the build included.
 """
 from __future__ import annotations
 
@@ -70,6 +87,8 @@ W_IN, H_IN = 640, 480
 N_MONO = 120          # rendered frames of the mono-inertial paths
 PEAK_F32 = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
+KERNELS = ("lk_level", "fast9", "klt_level")
+N512 = "320x240 n=512"  # the shape key of path (c)'s inputs
 
 
 def nvidia_smi_line() -> str:
@@ -98,17 +117,21 @@ def phase_device(card: str) -> None:
 
 
 def phase_build() -> None:
-    """One nvcc per kernel, one after another."""
+    """One nvcc per kernel, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ekf_vio_tpu_torch import cuda_lib
 
-    t_all = time.perf_counter()
-    for name in ("lk_level", "fast9", "klt_level"):
+    def build(name):
         t0 = time.perf_counter()
-        path = cuda_lib.build(name)
-        cuda_lib.load(name)
-        print(f"[build] {name}: {time.perf_counter() - t0:.2f} s -> "
-              f"{os.path.relpath(path)}")
-    print(f"[build] all: {time.perf_counter() - t_all:.2f} s")
+        return name, cuda_lib.build(name), time.perf_counter() - t0
+
+    t_all = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for name, path, dt in pool.map(build, KERNELS):
+            cuda_lib.load(name)
+            print(f"[build] {name}: {dt:.2f} s -> {os.path.relpath(path)}")
+    print(f"[build] all, in parallel: {time.perf_counter() - t_all:.2f} s")
 
 
 def _cam(s: int):
@@ -126,11 +149,32 @@ def _bench_cfg():
                      fast_threshold=30)
 
 
-def _lk_inputs(frames_small, mono2, dev):
+def _fwi_cfg():
+    """configs/fast_with_insight.yaml with bench.py's overrides: 400
+    features, 512 slots, frames / 2; read from the file where PyYAML is
+    installed, else the same values built in code."""
+    from ekf_vio_tpu_torch.config import VIOConfig
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "fast_with_insight.yaml")
+    try:
+        cfg = VIOConfig.from_yaml(path)
+    except ImportError:
+        cfg = VIOConfig(num_features=400, max_features=512,
+                        inverse_image_scale=2, fast_threshold=50)
+    cfg = cfg.replace(min_new_feature_dist=8.0, fast_threshold=30)
+    if (cfg.num_features, cfg.max_features,
+            cfg.inverse_image_scale) != (400, 512, 2):
+        raise AssertionError(f"fast_with_insight profile: {cfg}")
+    return cfg
+
+
+def _lk_inputs(frames_small, mono2, dev, frames_half):
     """The main path's LK inputs: bench frames 0 -> 1 at 160x120 with the
-    128 seeds of ``initialize``, and rendered 320x240 frames 0 -> 1 with
-    those of ``initialize_imu``'s detection, as {shape: (prev pyramid, cur
-    pyramid, level-0 points [128, 2], valid [128])}."""
+    128 seeds of ``initialize``, rendered 320x240 frames 0 -> 1 with
+    those of ``initialize_imu``'s detection, and bench frames 0 -> 1 at
+    320x240 with the 512 slots of path (c)'s ``initialize``, as {shape:
+    (prev pyramid, cur pyramid, level-0 points [N, 2], valid [N])}."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.frontend import camera, pyramid
 
@@ -140,11 +184,19 @@ def _lk_inputs(frames_small, mono2, dev):
                            cam)
     px = camera.metric_to_pixel(cam, es.filt.klt_ref)
     mpx, mvalid = _mono_seeds(mono2[0], _mono_cfg())
+    fcfg = _fwi_cfg()
+    fcam = _cam(fcfg.inverse_image_scale)
+    fes = engine.initialize(frames_half[0], torch.zeros((), device=dev), fcfg,
+                            fcam)
     return {"160x120": (pyramid.build_pyramid(frames_small[0], 3),
                         pyramid.build_pyramid(frames_small[1], 3), px,
                         es.filt.active),
             "320x240": (pyramid.build_pyramid(mono2[0], 3),
-                        pyramid.build_pyramid(mono2[1], 3), mpx, mvalid)}
+                        pyramid.build_pyramid(mono2[1], 3), mpx, mvalid),
+            N512: (pyramid.build_pyramid(frames_half[0], 3),
+                   pyramid.build_pyramid(frames_half[1], 3),
+                   camera.metric_to_pixel(fcam, fes.filt.klt_ref),
+                   fes.filt.active)}
 
 
 def phase_lk(inputs, frames_full) -> float:
@@ -156,6 +208,7 @@ def phase_lk(inputs, frames_full) -> float:
     cfg = _bench_cfg()
     pp, cp, px, valid = inputs["160x120"]
     mp, mc, mpx, mvalid = inputs["320x240"]
+    fp, fc, fpx, fvalid = inputs[N512]
     # (name, prev pyramid, cur pyramid, level-0 points, valid, lo, hi)
     calls = [("160x120 levels 0-2 n=128", pp, cp, px, valid, 0, 2),
              ("160x120 levels 0-2 n=100", pp, cp, px[:100].contiguous(),
@@ -164,6 +217,7 @@ def phase_lk(inputs, frames_full) -> float:
              ("640x480 level 0 n=128", [frames_full[0]], [frames_full[1]],
               px * 4.0, valid, 0, 0),
              ("320x240 rendered levels 0-3 n=128", mp, mc, mpx, mvalid, 0, 3),
+             ("320x240 bench levels 0-3 n=512", fp, fc, fpx, fvalid, 0, 3),
              ("320x240 rendered level 3 alone n=128", mp, mc, mpx, mvalid, 3,
               3)]
     kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
@@ -327,12 +381,63 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
     return {"fps": fps, "launches": all_counts}
 
 
+def phase_fwi_path(frames_dev, times_dev, card: str) -> dict:
+    """Path (c): ``run_sequence`` at the fast_with_insight point (400
+    features, 512 slots, D = 1558, frames / 2) on the card (one warm-up,
+    best of 2), with bench.py's asserts for that point."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.frontend import camera, klt
+
+    cfg = _fwi_cfg()
+    s = cfg.inverse_image_scale
+    cam = _cam(s)
+    small = camera.downscale_image(frames_dev, s).contiguous()
+    n = small.shape[0]
+    backend = klt.selected_backend(small.shape[1:], cfg.max_features, cfg,
+                                   small.device)
+    if backend != "cuda_lk":
+        raise AssertionError(f"tracker backend: {backend}")
+    want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
+    best = float("inf")
+    for rep in range(3):  # one warm-up, then best of 2
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, outs = engine.run_sequence(small, times_dev, cfg, cam)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if rep:
+            best = min(best, dt)
+    tracked = outs.num_tracked.cpu().numpy()
+    sig = es.filt.Sigma
+    if not (torch.isfinite(outs.base_mu).all() and torch.isfinite(sig).all()):
+        raise AssertionError("non-finite state")
+    if not tracked[10:].mean() > 250:
+        raise AssertionError(f"tracked only {tracked[10:].mean():.0f}")
+    min_diag = torch.diagonal(sig).min().item()
+    asym = (sig - sig.T).abs().max().item()
+    if not (min_diag >= -1e-5 and asym < 1e-3):
+        raise AssertionError(f"check_sigma: min diag {min_diag}, asymmetry "
+                             f"{asym}")
+    fps = (n - 1) / best
+    print(f"[path c] run_sequence, {n} bench frames {small.shape[2]}x"
+          f"{small.shape[1]}, {cfg.max_features} slots (D = {cfg.state_dim}), "
+          f"backend {backend}: {fps:.1f} frames/s (best of 2: "
+          f"{best * 1e3:.1f} ms) on {card}; tracked mean from frame 10 "
+          f"{tracked[10:].mean():.1f}, min {tracked[10:].min()}; min diag "
+          f"{min_diag:.3e}, asymmetry {asym:.3e}; launches {counts}")
+    return {"fps": fps, "launches": counts, "step_ms": 1e3 * best / (n - 1)}
+
+
 # --------------------------------------------------------------------------
 # The mono-inertial slice: configs/mono_inertial.yaml on rendered 320x240
 # --------------------------------------------------------------------------
 
 
-def _mono_cfg(win: int = 21):
+def _mono_cfg(win: int = 21, sqrt: bool = False):
     """configs/mono_inertial.yaml's values, built in code (the card's
     machine may lack PyYAML)."""
     from ekf_vio_tpu_torch.config import VIOConfig
@@ -341,7 +446,8 @@ def _mono_cfg(win: int = 21):
                      triangulate_new_features=True, vi_init_frames=10,
                      klt_measurement_variance_px=0.001, q_feature=1e-7,
                      min_new_feature_dist=10.0, fast_threshold=25,
-                     inverse_image_scale=2, klt_window_size=win)
+                     inverse_image_scale=2, klt_window_size=win,
+                     square_root_form=sqrt)
 
 
 def _mono_seeds(img, cfg):
@@ -389,43 +495,68 @@ def _level_cases_agree(tag, name, got, ref, valid) -> float:
     return dp
 
 
-def phase_klt(mono2) -> float:
-    """klt_level against its twin on the slice's inputs.  Returns the max
-    |Δpoint| over tracked rows."""
-    from ekf_vio_tpu_torch.frontend import klt, klt_cuda, pyramid
-
-    cfg = _mono_cfg(17)
-    px, valid = _mono_seeds(mono2[0], cfg)
-    pp = pyramid.build_pyramid(mono2[0], 3)
-    cp = pyramid.build_pyramid(mono2[1], 3)
-    cases = [(f"win 17 level {lvl} n=128", lvl, 17, px / 2 ** lvl, valid)
-             for lvl in range(3)]
-    cases.append(("win 21 level 0 n=128", 0, 21, px, valid))
+def _klt_point_cases(px, valid):
+    """The seed sets klt_level is held on: (name, level-0 points, level-0
+    guesses, valid)."""
     border = px.clone()
     border[:6] = torch.tensor([[2.5, 2.5], [316.0, 120.0], [150.0, 236.5],
                                [10.2, 200.7], [305.3, 8.9], [40.0, 16.0]],
                               device=px.device)
     vb = valid.clone()
     vb[:6] = True
-    cases.append(("win 17 level 0, 6 seeds within 17 px of the border",
-                  0, 17, border, vb))
     nan = px.clone()
     nan[5] = float("nan")
+    nan_guess = nan.clone()
+    nan_guess[9] = float("nan")
     vn = valid.clone()
     vn[[5, 9, 11]] = False
-    cases.append(("win 17 level 0, NaN and invalid rows", 0, 17, nan, vn))
-    cases.append(("win 17 level 0 n=100", 0, 17, px[:100].contiguous(),
-                  valid[:100].contiguous()))
+    return [("n=128", px, px, valid),
+            ("6 seeds within 17 px of the border", border, border, vb),
+            ("NaN and invalid rows", nan, nan_guess, vn),
+            ("n=100", px[:100].contiguous(), px[:100].contiguous(),
+             valid[:100].contiguous())]
+
+
+def phase_klt(mono2) -> float:
+    """klt_level against its plain version on the slice's inputs: one
+    launch per pyramid call (levels 2-0) against
+    ``klt.track_pyramid_klt_plain``, then one launch per level against
+    ``track_level_klt_plain``.  Returns the max |Δpoint| over tracked
+    rows."""
+    from ekf_vio_tpu_torch.frontend import klt, klt_cuda, pyramid
+
+    cfg = _mono_cfg(17)
+    px, valid = _mono_seeds(mono2[0], cfg)
+    pp = pyramid.build_pyramid(mono2[0], 3)
+    cp = pyramid.build_pyramid(mono2[1], 3)
+    points = _klt_point_cases(px, valid)
+    kw = dict(iters=cfg.klt_iterations, eps=cfg.klt_eps)
     worst = 0.0
-    for name, lvl, win, q, v in cases:
-        q = q.contiguous()
-        g0 = q.clone()
-        if "NaN" in name:
-            g0[9] = float("nan")
-        kw = dict(win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps,
-                  min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
-        got = klt_cuda.track_level_cuda(pp[lvl], cp[lvl], q, g0, v, **kw)
-        ref = klt.track_level_klt_plain(pp[lvl], cp[lvl], q, g0, v, **kw)
+    # every level of a track call in one launch
+    for win, cases in ((17, points), (21, points[:1])):
+        for name, p0, g0, v in cases:
+            args = (pp, cp, p0, g0, v)
+            pkw = dict(kw, lo=0, hi=2, win=win, min_eigen=cfg.klt_min_eigen)
+            before = klt_cuda.launches
+            got = klt_cuda.track_pyramid_cuda(*args, **pkw)
+            if klt_cuda.launches != before + 1:
+                raise AssertionError("a pyramid call is not one launch")
+            ref = klt.track_pyramid_klt_plain(*args, **pkw)
+            worst = max(worst, _level_cases_agree(
+                "klt", f"pyramid win {win} levels 2-0, {name}", got, ref, v))
+    # one launch per level, each seeded at its own points
+    cases = [(f"win 17 level {lvl}, n=128", lvl, 17) + points[0][1:]
+             for lvl in range(3)]
+    cases.append(("win 21 level 0, n=128", 0, 21) + points[0][1:])
+    cases += [(f"win 17 level 0, {name}", 0, 17, p0, g0, v)
+              for name, p0, g0, v in points[1:]]
+    for name, lvl, win, p0, g0, v in cases:
+        args = (pp[lvl], cp[lvl], (p0 / 2 ** lvl).contiguous(),
+                (g0 / 2 ** lvl).contiguous(), v)
+        lkw = dict(kw, win=win,
+                   min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
+        got = klt_cuda.track_level_cuda(*args, **lkw)
+        ref = klt.track_level_klt_plain(*args, **lkw)
         worst = max(worst, _level_cases_agree("klt", name, got, ref, v))
     return worst
 
@@ -480,33 +611,60 @@ def _bound(nbytes: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _pyramid_work(pp, cp, px, valid, cfg, lo: int, hi: int):
-    """(bytes, flops, {level: moves}) of one lk_level pyramid call, the
-    guesses chained through the levels as the kernel chains them; each
-    level's path is read off the plain twin stopped after 0, 1, ... iters
-    iterations, and ``moves`` are the iterations in which each feature
-    valid at that level moves."""
+def _pyramid_work(pp, cp, px, valid, cfg, lo: int, hi: int,
+                  kind: str = "lk"):
+    """(bytes, flops, {level: moves}) of one pyramid call of lk_level
+    (``kind`` "lk") or klt_level ("klt"), the guesses chained through the
+    levels as the kernel chains them; each level's path is read off the
+    plain version stopped after 0, 1, ... iters iterations, and ``moves``
+    are the iterations in which each feature valid at that level moves."""
     from ekf_vio_tpu_torch.frontend import klt
 
     win = cfg.klt_window_size
+
+    def level(lvl, q, g, ok, k):
+        kw = dict(win=win, iters=k, eps=cfg.klt_eps)
+        if kind == "lk":
+            return klt.track_level_plain(
+                pp[lvl], cp[lvl], q, g, ok, **kw,
+                min_eigen=cfg.klt_min_eigen, gate_eig=lvl == 0)[:2]
+        g, inb = klt.track_level_klt_plain(
+            pp[lvl], cp[lvl], q, g, ok, **kw,
+            min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)[:2]
+        return g, ok & inb
+
     g, ok = px / float(2 ** hi), valid
     nbytes = flops = 0
     moves = {}
     for lvl in range(hi, lo - 1, -1):
         q = px / float(2 ** lvl)
-        runs = [klt.track_level_plain(pp[lvl], cp[lvl], q, g, ok, win=win,
-                                      iters=k, eps=cfg.klt_eps,
-                                      min_eigen=cfg.klt_min_eigen,
-                                      gate_eig=lvl == 0)
+        runs = [level(lvl, q, g, ok, k)
                 for k in range(cfg.klt_iterations + 1)]
         b, f, m = _level_work(pp[lvl], q, torch.stack([r[0] for r in runs]),
                               win)
         nbytes, flops = nbytes + b, flops + f
         moves[lvl] = m[ok]
-        g, ok = runs[-1][:2]
+        g, ok = runs[-1]
         if lvl > lo:
             g = g * 2.0
     return nbytes, flops, moves
+
+
+def _device_kernels(fn, reps: int = 200) -> float:
+    """The number of device kernels one call of ``fn`` launches, counted
+    over ``reps`` calls (a profile that follows another one drops
+    about a dozen kernel events at its start, so a short one reads low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / reps
 
 
 def _timed(fn, reps: int):
@@ -529,11 +687,14 @@ def _us(ms: float) -> str:
 
 
 def phase_timings(inputs, card: str) -> dict:
-    """Each kernel against its twin at the main path's shapes: one
-    lk_level ``track`` call (160x120: 3 levels, the vision path; 320x240: 4
-    levels, path (a)), and the same call with no iteration (its fixed
-    part), one FAST call at both sizes, and klt_level's 3 levels of path
-    (b).  Device and wall time, and the roofline bound of the same work.
+    """Each kernel against its plain version at the paths' shapes: one
+    lk_level ``track`` call (160x120: 3 levels, the vision path; 320x240:
+    4 levels, path (a); 320x240 with 512 slots, path (c)) and one
+    klt_level ``track`` call (3 levels of path (b); the same seeds padded
+    to 512 slots), each also with no iteration (its fixed part), and one
+    FAST call at each frame.  Device and wall time, and the roofline bound
+    of the same work.  Then the device kernels of one path (b)
+    ``klt.track`` call and the QR of the square-root update's pre-array.
     Returns {name: {shape: {...}}} in ms."""
     from ekf_vio_tpu_torch.frontend import (fast, fast_cuda, klt, klt_cuda,
                                             lk_cuda)
@@ -542,24 +703,31 @@ def phase_timings(inputs, card: str) -> dict:
     kw = dict(win=cfg.klt_window_size, iters=cfg.klt_iterations,
               eps=cfg.klt_eps, min_eigen=cfg.klt_min_eigen)
     out = {"lk_level": {}, "fast9": {}, "klt_level": {}}
-    for shape, hi in (("160x120", 2), ("320x240", 3)):
-        pp, cp, px, valid = inputs[shape]
-        nbytes, flops, moves = _pyramid_work(pp, cp, px, valid, cfg, 0, hi)
+
+    def pyramid_times(name, module, plain_fn, shape, args, hi, kw, kind,
+                      wcfg):
+        nbytes, flops, moves = _pyramid_work(*args, wcfg, 0, hi, kind)
         for lvl, m in moves.items():
-            print(f"[time] lk_level {shape} level {lvl}: a feature moves in "
+            print(f"[time] {name} {shape} level {lvl}: a feature moves in "
                   f"at most {int(m.max())} iterations, {m.float().mean():.2f} "
                   f"on average ({m.numel()} features)")
+        pp, cp, px, valid = args
         times = _in_turns({
-            "kernel": lambda: lk_cuda.track_pyramid_cuda(
+            "kernel": lambda: module.track_pyramid_cuda(
                 pp, cp, px, px, valid, lo=0, hi=hi, **kw),
             # the prologue and the gathers alone
-            "0 iterations": lambda: lk_cuda.track_pyramid_cuda(
+            "0 iterations": lambda: module.track_pyramid_cuda(
                 pp, cp, px, px, valid, lo=0, hi=hi, **dict(kw, iters=0))},
             200)
-        plain = _timed(lambda: klt.track_pyramid_plain(
-            pp, cp, px, px, valid, lo=0, hi=hi, **kw), 5)
-        out["lk_level"][shape] = _entry(times, plain, _bound(nbytes, flops))
-    for shape, thr in (("160x120", 30.0), ("320x240", 25.0)):
+        plain = _timed(lambda: plain_fn(pp, cp, px, px, valid, lo=0, hi=hi,
+                                        **kw), 5)
+        out[name][shape] = _entry(times, plain, _bound(nbytes, flops))
+        out[name][shape]["n"] = px.shape[0]
+
+    for shape, hi in (("160x120", 2), ("320x240", 3), (N512, 3)):
+        pyramid_times("lk_level", lk_cuda, klt.track_pyramid_plain, shape,
+                      inputs[shape], hi, kw, "lk", cfg)
+    for shape, thr in (("160x120", 30.0), ("320x240", 25.0), (N512, 30.0)):
         img = inputs[shape][0][0].contiguous()
         h, w = img.shape
         times = {"kernel": _timed(lambda: fast_cuda.detect_cuda(img, thr),
@@ -571,46 +739,57 @@ def phase_timings(inputs, card: str) -> dict:
         # arcs, 8 NMS comparisons: 109
         out["fast9"][shape] = _entry(times, plain,
                                      _bound(2 * h * w * 4, h * w * 109))
+        out["fast9"][shape]["n"] = inputs[shape][2].shape[0]
 
-    # klt_level: path (b)'s levels 0-2 at win 17, one launch each
+    # klt_level: path (b)'s levels 0-2 at win 17 in one launch, at its 128
+    # slots and on the 512 slots of path (c)'s frames
     kcfg = _mono_cfg(17)
+    kkw = dict(kw, win=17)
     pp, cp = inputs["320x240"][:2]
     px, valid = _mono_seeds(pp[0], kcfg)
-    qs = [(px / 2 ** lvl).contiguous() for lvl in range(3)]
-    kkw = dict(win=17, iters=kcfg.klt_iterations, eps=kcfg.klt_eps)
+    pyramid_times("klt_level", klt_cuda, klt.track_pyramid_klt_plain,
+                  "320x240", (pp, cp, px, valid), 2, kkw, "klt", kcfg)
+    pyramid_times("klt_level", klt_cuda, klt.track_pyramid_klt_plain, N512,
+                  inputs[N512], 2, kkw, "klt", kcfg)
 
-    def levels(fn):
-        def run():
-            for lvl in range(3):
-                fn(pp[lvl], cp[lvl], qs[lvl], qs[lvl], valid, **kkw,
-                   min_eigen=kcfg.klt_min_eigen if lvl == 0 else -1.0)
-        return run
-
-    nbytes = flops = 0
-    for lvl in range(3):
-        path = torch.stack([klt.track_level_klt_plain(
-            pp[lvl], cp[lvl], qs[lvl], qs[lvl], valid, **dict(kkw, iters=k),
-            min_eigen=kcfg.klt_min_eigen if lvl == 0 else -1.0)[0]
-            for k in range(kcfg.klt_iterations + 1)])
-        b, f, _ = _level_work(pp[lvl], qs[lvl], path, 17)
-        nbytes, flops = nbytes + b, flops + f
-    out["klt_level"]["320x240"] = _entry(
-        {"kernel": _timed(levels(klt_cuda.track_level_cuda), 200)},
-        _timed(levels(klt.track_level_klt_plain), 5), _bound(nbytes, flops))
-    out["klt_level"]["320x240"]["launches_per_call"] = 3
+    # what a level adds to the fixed part: its share of the hoisted
+    # prologue and its dependent cur-patch gather
+    for hi in range(3):
+        d, wl = _timed(lambda: klt_cuda.track_pyramid_cuda(
+            pp, cp, px, px, valid, lo=0, hi=hi, **dict(kkw, iters=0)), 200)
+        print(f"[time] klt_level with no iteration, levels 0-{hi}, n=128: "
+              f"{_us(d)} device / {_us(wl)} wall ({card})")
 
     for name, by_shape in out.items():
         for shape, t in by_shape.items():
             variants = "; ".join(
                 f"{k}: {_us(d)} device / {_us(wl)} wall"
                 for k, (d, wl) in t["variants"].items())
-            print(f"[time] {name} per call at {shape}, n=128 "
-                  f"({t['launches_per_call']} launch"
-                  f"{'es' if t['launches_per_call'] > 1 else ''}): kernel "
-                  f"{_us(t['device'][0])} device / {_us(t['wall'][0])} wall "
-                  f"[{variants}]; plain twin {_us(t['device'][1])} device / "
-                  f"{_us(t['wall'][1])} wall; bound {t['bound_ms'] * 1e3:.3f} "
-                  f"us ({t['bound_by']}) ({card})")
+            print(f"[time] {name} per call at {shape.split(' n=')[0]}, "
+                  f"n={t['n']} (1 launch): "
+                  f"kernel {_us(t['device'][0])} device / "
+                  f"{_us(t['wall'][0])} wall [{variants}]; plain version "
+                  f"{_us(t['device'][1])} device / {_us(t['wall'][1])} wall; "
+                  f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) "
+                  f"({card})")
+
+    # the device kernels of one klt.track call on path (b) and path (a)
+    for win in (17, 21):
+        tcfg = _mono_cfg(win)
+        n_k = _device_kernels(lambda: klt.track(pp, cp, px, px, valid, tcfg))
+        print(f"[time] klt.track at 320x240, n=128, win {win}: {round(n_k)} "
+              f"device kernels per call ({n_k:.2f} recorded)")
+
+    # the QR of the square-root update's pre-array, (2N + D)^2, a library
+    # call (cuSOLVER) as in the JAX package
+    for slots in (128, 512):
+        side = 2 * slots + 22 + 3 * slots
+        a = torch.randn(side, side, device=px.device)
+        dev_ms, wall_ms = _timed(lambda: torch.linalg.qr(a, mode="r"), 5)
+        print(f"[time] torch.linalg.qr(mode='r') of the update's pre-array, "
+              f"{side}x{side} ({slots} slots): {dev_ms:.3f} ms device / "
+              f"{wall_ms:.3f} ms wall ({card})")
+        out.setdefault("qr", {})[f"{side}x{side}"] = (dev_ms, wall_ms)
     return out
 
 
@@ -631,13 +810,16 @@ def _ate(seq, outs, start: int) -> float:
     return ate_rmse(seq.times[start:], p_est, seq.times, seq.gt_pos)
 
 
-def phase_mono_path(seq, win: int, card: str) -> dict:
+def phase_mono_path(seq, win: int, card: str, sqrt: bool = False) -> dict:
     """``run_sequence_imu`` over the rendered sequence on the card (one
-    warm-up, best of 2), with its backend and launch counts asserted."""
+    warm-up, best of 2), with its backend and launch counts asserted:
+    path (a) (win 21), (b) (win 17) or (d) (win 21, square-root form)."""
     from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.core import filter as ekf
+    from ekf_vio_tpu_torch.core import sqrt_filter
     from ekf_vio_tpu_torch.frontend import klt
 
-    cfg = _mono_cfg(win)
+    cfg = _mono_cfg(win, sqrt)
     cam = _mono_cam(seq)
     k0 = cfg.vi_init_frames
     n = seq.frames.shape[0]
@@ -648,7 +830,7 @@ def phase_mono_path(seq, win: int, card: str) -> dict:
         raise AssertionError(f"tracker backend: {backend}")
     want = ({"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 0}
             if win == 21 else
-            {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 3 * (n - 1)})
+            {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": n - 1})
     args = (seq.frames, seq.times, seq.imu_dt, seq.imu_gyro, seq.imu_accel,
             seq.gravity_w)
     dev_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
@@ -675,7 +857,14 @@ def phase_mono_path(seq, win: int, card: str) -> dict:
         raise AssertionError(f"lost tracking: {tracked.tolist()}")
     ate = _ate(seq, outs, k0)
     fps = (n - 1) / best
-    tag = "a" if win == 21 else "b"
+    tag = "d" if sqrt else "a" if win == 21 else "b"
+    if sqrt:  # the state carries the factor: audit its square
+        min_diag, asym = (float(x) for x in ekf.check_sigma(
+            sqrt_filter.to_covariance(es.filt)))
+        print(f"[path d] square-root form: check_sigma of L L^T: min diag "
+              f"{min_diag:.3e}, asymmetry {asym:.3e}")
+        if not (min_diag >= -1e-5 and asym < 1e-3):
+            raise AssertionError("the squared factor fails check_sigma")
     print(f"[path {tag}] run_sequence_imu, {n} rendered frames 320x240, "
           f"128 slots, win {win}, backend {backend}: {fps:.1f} frames/s "
           f"(best of 2: {best * 1e3:.1f} ms) on {card}; tracked min "
@@ -687,13 +876,14 @@ def phase_mono_path(seq, win: int, card: str) -> dict:
             "step_ms": 1e3 * best / (n - 1)}
 
 
-def phase_mono_cpu_rollout(seq) -> None:
+def phase_mono_cpu_rollout(seq, sqrt: bool = False) -> None:
     """A 15-frame mono-inertial rollout on the card against the same on
-    the CPU (plain twins): every count equal, base_mu within 5e-3 (GPU
-    matmul order and reduction order compound over the steps)."""
+    the CPU (plain versions): every count equal, base_mu within 5e-3 (GPU
+    matmul order and reduction order compound over the steps; in
+    square-root form also cuSOLVER's QR against LAPACK's)."""
     from ekf_vio_tpu_torch import engine
 
-    cfg = _mono_cfg()
+    cfg = _mono_cfg(sqrt=sqrt)
     cam = _mono_cam(seq)
     k = 15
     args = tuple(a[:m] for a, m in ((seq.frames, k), (seq.times, k),
@@ -709,19 +899,21 @@ def phase_mono_cpu_rollout(seq) -> None:
     same_tracked = torch.equal(gpu.num_tracked.cpu(), cpu.num_tracked)
     same_active = torch.equal(gpu.num_active.cpu(), cpu.num_active)
     dmu = (gpu.base_mu.cpu() - cpu.base_mu).abs().max().item()
-    print(f"[path a] {k}-frame rollout, card vs CPU twins: num_tracked "
+    print(f"[path {'d' if sqrt else 'a'}] {k}-frame rollout, card vs CPU: "
+          f"num_tracked "
           f"{gpu.num_tracked.tolist()} vs {cpu.num_tracked.tolist()}, "
           f"num_active equal {same_active}, max|dbase_mu| {dmu:.3e}")
     if not (same_tracked and same_active and dmu < 5e-3):
         raise AssertionError("card and CPU mono-inertial rollouts disagree")
 
 
-def phase_mono_profile(seq, step_ms: float) -> None:
-    """torch.profiler over 5 steady-state IMU steps of path (a)."""
+def phase_mono_profile(seq, step_ms: float, sqrt: bool = False) -> None:
+    """torch.profiler over 5 steady-state IMU steps of path (a), or of
+    path (d) with ``sqrt``."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.core import imu
 
-    cfg = _mono_cfg()
+    cfg = _mono_cfg(sqrt=sqrt)
     cam = _mono_cam(seq)
     t = {k: torch.from_numpy(np.ascontiguousarray(getattr(seq, k))).cuda()
          for k in ("frames", "times", "imu_dt", "imu_gyro", "imu_accel",
@@ -740,7 +932,8 @@ def phase_mono_profile(seq, step_ms: float) -> None:
         return es
 
     es = steps(es, k0, k0 + 5)
-    _profile_steps(lambda: steps(es, k0 + 5, k0 + 10), step_ms, "imu step")
+    _profile_steps(lambda: steps(es, k0 + 5, k0 + 10), step_ms,
+                   "sqrt imu step" if sqrt else "imu step")
 
 
 def _profile_steps(run, step_ms: float, what: str) -> None:
@@ -777,14 +970,15 @@ def _profile_steps(run, step_ms: float, what: str) -> None:
                     for line in table.splitlines()))
 
 
-def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
-    """torch.profiler over 5 steady-state steps of the vision path."""
+def phase_profile(frames_dev, times_dev, step_ms: float, cfg,
+                  what: str) -> None:
+    """torch.profiler over 5 steady-state steps of a vision-only path."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.frontend import camera
 
-    cfg = _bench_cfg()
     cam = _cam(cfg.inverse_image_scale)
-    small = camera.downscale_image(frames_dev[:16], 4).contiguous()
+    small = camera.downscale_image(frames_dev[:16],
+                                   cfg.inverse_image_scale).contiguous()
     es = engine.initialize(small[0], times_dev[0], cfg, cam,
                            device=small.device)
     for i in range(1, 10):
@@ -795,7 +989,7 @@ def phase_profile(frames_dev, times_dev, step_ms: float) -> None:
         for i in range(10, 15):
             e, _ = engine.step(e, small[i], times_dev[i], cfg, cam)
 
-    _profile_steps(run, step_ms, "vision step")
+    _profile_steps(run, step_ms, what)
 
 
 def _kernel_entry(name, module, route, launches, err, by_shape) -> dict:
@@ -835,9 +1029,10 @@ def main() -> int:
     frames_dev = torch.from_numpy(frames).to(dev)
     times_dev = torch.from_numpy(times).to(dev)
     small2 = camera.downscale_image(frames_dev[:2], 4).contiguous()
+    half2 = camera.downscale_image(frames_dev[:2], 2).contiguous()
     seq = rendered.generate(num_frames=N_MONO)
     mono2 = torch.from_numpy(seq.frames[:2]).to(dev)
-    inputs = _lk_inputs(small2, mono2, dev)
+    inputs = _lk_inputs(small2, mono2, dev, half2)
     lk_err = phase_lk(inputs, frames_dev[:2])
     fast_err = phase_fast(small2, frames_dev[:2], mono2)
     klt_err = phase_klt(mono2)
@@ -847,16 +1042,24 @@ def main() -> int:
     path_a = phase_mono_path(seq, 21, card)
     phase_mono_cpu_rollout(seq)
     path_b = phase_mono_path(seq, 17, card)
-    phase_profile(frames_dev, times_dev, 1e3 / vision["fps"])
+    path_c = phase_fwi_path(frames_dev, times_dev, card)
+    path_d = phase_mono_path(seq, 21, card, sqrt=True)
+    phase_mono_cpu_rollout(seq, sqrt=True)
+    phase_profile(frames_dev, times_dev, 1e3 / vision["fps"], _bench_cfg(),
+                  "vision step")
     phase_mono_profile(seq, path_a["step_ms"])
+    phase_profile(frames_dev, times_dev, path_c["step_ms"], _fwi_cfg(),
+                  "512-slot vision step")
+    phase_mono_profile(seq, path_d["step_ms"], sqrt=True)
 
     runs = {"vision": vision["launches"], "path_a": path_a["launches"],
-            "path_b": path_b["launches"]}
-    for name in ("lk_level", "fast9", "klt_level"):
+            "path_b": path_b["launches"], "path_c": path_c["launches"],
+            "path_d": path_d["launches"]}
+    for name in KERNELS:
         if not any(r.get(name, 0) for r in runs.values()):
             raise AssertionError(f"{name} was never launched on a path")
     total = {name: sum(r.get(name, 0) for r in runs.values())
-             for name in ("lk_level", "fast9", "klt_level")}
+             for name in KERNELS}
     kernels = [
         _kernel_entry("lk_level", lk_cuda, "cuda", total["lk_level"], lk_err,
                       timings["lk_level"]),

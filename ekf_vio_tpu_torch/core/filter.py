@@ -1,4 +1,4 @@
-"""TightlyCoupledEKF as functions over a ``FilterState`` (covariance form).
+"""TightlyCoupledEKF as functions over a ``FilterState`` holding a dense Σ.
 
 Port of ``ekf_vio_tpu/core/filter.py``:
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ekf_vio_tpu_torch.config import VIOConfig
-from ekf_vio_tpu_torch.core import dynamics
+from ekf_vio_tpu_torch.core import dynamics, sqrt_filter
 from ekf_vio_tpu_torch.core.state import (  # noqa: F401  (re-exports)
     FilterState,
     add_features,
@@ -28,15 +28,23 @@ from ekf_vio_tpu_torch.core.update import (  # noqa: F401  (re-exports)
 )
 
 
-def _require_covariance_form(cfg: VIOConfig) -> None:
-    if cfg.square_root_form:
-        raise NotImplementedError("the square-root filter is not ported yet")
-
-
 def update_with_feature_positions(state, cfg, measured_uv, meas_cov, passed,
                                   budget=None) -> FilterState:
-    """EKF update (covariance form, core/update.py)."""
-    _require_covariance_form(cfg)
+    """EKF update, dispatching on ``cfg.square_root_form``: the dense
+    covariance-form update (core/update.py) or the QR square-root array
+    update (core/sqrt_filter.py) on a dense Σ, with the same semantics.
+    ``budget`` (static) compacts the measured subset before the
+    factorization, in the covariance form only."""
+    if cfg.square_root_form:
+        # budget >= n_max is the dense path's no-op; only an actual
+        # compaction request is refused for the QR-array update
+        if budget is not None and budget < state.n_max:
+            raise ValueError(
+                "measured-subset compaction (budget) is implemented for "
+                "the covariance-form update only; the sqrt QR-array "
+                "update runs the full masked system")
+        return sqrt_filter.update_sqrt(state, cfg, measured_uv, meas_cov,
+                                       passed)
     return _update_covariance_form(state, cfg, measured_uv, meas_cov, passed,
                                    budget)
 
@@ -44,8 +52,11 @@ def update_with_feature_positions(state, cfg, measured_uv, meas_cov, passed,
 def predict(state: FilterState, cfg: VIOConfig, dt) -> FilterState:
     """Process step (TightlyCoupledEKF::process, cpp:96-121): exact
     Jacobian blocks, mean transport (features with the pre-update base
-    state, cpp:102-107), then Σ ← FΣFᵀ + Q."""
-    _require_covariance_form(cfg)
+    state, cpp:102-107), then Σ ← FΣFᵀ + Q; with
+    ``cfg.square_root_form`` the covariance propagates as an orthogonal
+    triangularization instead (core/sqrt_filter.py)."""
+    if cfg.square_root_form:
+        return sqrt_filter.predict_sqrt(state, cfg, dt)
     dt = torch.as_tensor(dt, dtype=state.base_mu.dtype, device=state.device)
 
     Fb, Ffb, Ff = dynamics.process_jacobian_blocks(state.base_mu,

@@ -113,7 +113,7 @@ def _step29_xn(xn, gyro_m, accel_m, dt, gravity_w):
 _jac29_xn = vmap(jacfwd(_step29_xn), in_dims=(0, 0, 0, 0, None))
 
 
-def _compound_transport(feat_mu: torch.Tensor, qt: torch.Tensor):
+def compound_transport(feat_mu: torch.Tensor, qt: torch.Tensor):
     """Transport [N, 3] features [u, v, ρ] by the compound motion
     qt = [qc(4), tc(3)]."""
     z = 1.0 / feat_mu[:, 2]
@@ -271,7 +271,7 @@ def propagate_imu_batch_with_motion(state: FilterState, cfg: VIOConfig,
         state.base_mu, cfg, batch, gravity_w, lin_base=lin_base)
 
     Fb = J[:nb, :nb]
-    new_feat = _compound_transport(state.feat_mu, qt)
+    new_feat = compound_transport(state.feat_mu, qt)
     _, Ff, W = dynamics.transport_jacobians(state.feat_mu, qt_lin)
     Ffb = torch.einsum("nij,jb->nib", W, J[nb:, :nb])      # [N, 3, 22]
     Ffb, Ff = dynamics.mask_feature_jacobians(Ffb, Ff, state.active)

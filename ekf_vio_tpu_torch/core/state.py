@@ -117,7 +117,7 @@ def block_diag(B: torch.Tensor) -> torch.Tensor:
     return (B[:, :, None, :] * eye[:, None, :, None]).reshape(n * k, n * k)
 
 
-def _slot_keep(mask: torch.Tensor, dtype) -> torch.Tensor:
+def slot_keep(mask: torch.Tensor, dtype) -> torch.Tensor:
     """[D] multiplicative keep vector: 0 on the rows of masked slots."""
     head = torch.ones(BASE_STATE_SIZE, dtype=dtype, device=mask.device)
     return torch.cat([head, 1.0 - mask.repeat_interleave(3).to(dtype)])
@@ -147,7 +147,7 @@ def add_features(state: FilterState, cfg: VIOConfig, new_uv: torch.Tensor,
     klt_ref = torch.where(take[:, None], uv_src, state.klt_ref)
     active = state.active | take
 
-    keep = _slot_keep(take, dtype)
+    keep = slot_keep(take, dtype)
     Sigma = state.Sigma * (keep[:, None] * keep[None, :])
     if depth_vars is None:
         dvar = torch.full((n,), cfg.default_point_depth_variance,
@@ -171,7 +171,7 @@ def drop_features(state: FilterState, drop: torch.Tensor) -> FilterState:
     """Free slots; their Σ rows/cols are zeroed so they cannot
     re-correlate (the cleanup the reference never performs)."""
     drop = drop & state.active
-    keep = _slot_keep(drop, state.Sigma.dtype)
+    keep = slot_keep(drop, state.Sigma.dtype)
     Sigma = state.Sigma * (keep[:, None] * keep[None, :])
     return state.replace(active=state.active & ~drop, Sigma=Sigma)
 

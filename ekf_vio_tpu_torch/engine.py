@@ -1,4 +1,4 @@
-"""Engine: the per-frame VIO pipeline, covariance form.
+"""Engine: the per-frame VIO pipeline, in covariance or square-root form.
 
 Port of ``ekf_vio_tpu/engine.py`` (the orchestrator's addFrame,
 EKFVIO.cpp:139-196):
@@ -15,8 +15,11 @@ with the closed-form VI initialization of ``initialize_imu``) loop over
 the frames in Python.  The entry points run on the card unless the
 caller passes ``device="cpu"``.  Each layer of ``step`` runs in a
 ``vio.*`` ``record_function`` span, so a ``torch.profiler`` trace
-attributes host and device time per layer.  The square-root filter is
-not ported and raises ``NotImplementedError``.
+attributes host and device time per layer.  With
+``VIOConfig.square_root_form`` the state's ``Sigma`` field holds the lower
+Cholesky factor L across frames (core/sqrt_filter.py): factored once at
+initialization, then predict, update, drop, add and the depth bootstrap
+all act on L.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ekf_vio_tpu_torch.config import BASE_STATE_SIZE, VIOConfig
 from ekf_vio_tpu_torch.core import depth_init
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.core import imu as imu_mod
-from ekf_vio_tpu_torch.core import lie, vi_init
+from ekf_vio_tpu_torch.core import lie, sqrt_filter, vi_init
 from ekf_vio_tpu_torch.core.update import (innovation_nis,
                                            innovation_nis_per_feature)
 from ekf_vio_tpu_torch.frontend import camera as cam_mod
@@ -65,10 +68,12 @@ def use_f32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _check_slice(cfg: VIOConfig) -> None:
-    """Reject the options this port does not run yet."""
+def _filter_sigma_diag(filt: ekf.FilterState,
+                       cfg: VIOConfig) -> torch.Tensor:
+    """diag(Σ) for either state form (factor mode stores L in .Sigma)."""
     if cfg.square_root_form:
-        raise NotImplementedError("square_root_form is not ported yet")
+        return sqrt_filter.sigma_diag_factor(filt.Sigma)
+    return torch.diagonal(filt.Sigma)
 
 
 def resolve_device(device) -> torch.device:
@@ -90,7 +95,6 @@ def initialize(img, t, cfg: VIOConfig, cam: Camera,
     """First-frame bootstrap (EKFVIO.cpp:141-153): start the filter clock
     and detect the initial feature set, on ``device``."""
     use_f32_matmul()
-    _check_slice(cfg)
     dev = resolve_device(device)
     img = _f32(img, dev)
     filt = ekf.init_state(cfg, device=dev)
@@ -103,6 +107,8 @@ def initialize(img, t, cfg: VIOConfig, cam: Camera,
     uv = cam_mod.pixel_to_metric(cam, px)
     filt = ekf.add_features(filt, cfg, uv, valid)
     filt = filt.replace(klt_ref=torch.where(valid[:, None], uv, filt.klt_ref))
+    if cfg.square_root_form:  # factor once; the loop never re-factors
+        filt = sqrt_filter.to_factor(filt)
     pyr = pyramid.build_pyramid(img, cfg.klt_max_pyramid_level)
     return EngineState(filt=filt, prev_pyr=pyr,
                        frame_idx=torch.ones((), dtype=torch.int32, device=dev),
@@ -131,7 +137,8 @@ def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
     """IMU-mode depth bootstrap (engine.py:240-293): young tracked
     features whose depth, triangulated against the exact IMU baseline
     ``frame_qt``, disagrees with their estimate get ρ and its variance
-    re-initialized; the ρ row and column of Σ are wiped first."""
+    re-initialized; the ρ row and column of Σ are wiped first (in factor
+    form by one re-triangularization)."""
     Rt = (lie.quat_to_matrix(frame_qt[0:4]), frame_qt[4:7])
     z_boot, tri_ok, rel_sig = depth_init.triangulate_depths(
         filt.klt_ref, measured_uv, filt.base_mu, dt, cfg.default_point_depth,
@@ -146,12 +153,17 @@ def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
             & filt.active & disagrees)
     rho = torch.where(boot, rho_new, rho_old)
     n, dtype = filt.n_max, filt.Sigma.dtype
-    keep = 1.0 - _rho_vec(boot.to(dtype), n)
-    Sigma = filt.Sigma * (keep[:, None] * keep[None, :])
-    # booted rows were just wiped to a zero diagonal: adding the new
-    # prior sets it exactly; other rows add zero
-    Sigma = Sigma + torch.diag(
-        _rho_vec(torch.where(boot, sig_tri * sig_tri, 0.0).to(dtype), n))
+    if cfg.square_root_form:
+        Sigma = sqrt_filter.wipe_rows_factor(
+            filt.Sigma, _rho_vec(boot.to(dtype), n),
+            _rho_vec((sig_tri * sig_tri).to(dtype), n))
+    else:
+        keep = 1.0 - _rho_vec(boot.to(dtype), n)
+        Sigma = filt.Sigma * (keep[:, None] * keep[None, :])
+        # booted rows were just wiped to a zero diagonal: adding the new
+        # prior sets it exactly; other rows add zero
+        Sigma = Sigma + torch.diag(
+            _rho_vec(torch.where(boot, sig_tri * sig_tri, 0.0).to(dtype), n))
     return filt.replace(feat_mu=torch.cat([filt.feat_mu[:, :2], rho[:, None]],
                                           1), Sigma=Sigma)
 
@@ -210,7 +222,7 @@ def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
                     init_mu[3:7])
     base = torch.cat([base[:3], q, base[7:]])
 
-    diag = torch.diagonal(filt.Sigma)
+    diag = _filter_sigma_diag(filt, cfg)
 
     def safe(d, fallback):
         return torch.clamp(torch.where(torch.isfinite(d), d, fallback), min=0.0)
@@ -221,9 +233,13 @@ def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
         safe(diag[16:22], cfg.init_bias_variance),
         torch.zeros(3 * n, dtype=dtype, device=dev),
     ])
+    # diag(σ²) in covariance form; its own Cholesky factor diag(σ) in
+    # factor form
+    new_sigma = torch.diag(torch.sqrt(sig_diag) if cfg.square_root_form
+                           else sig_diag)
     rec = filt.replace(base_mu=base,
                        active=torch.zeros_like(filt.active),
-                       Sigma=torch.diag(sig_diag),
+                       Sigma=new_sigma,
                        age=torch.zeros_like(filt.age))
     return ekf.FilterState(**{
         f.name: torch.where(lost, getattr(rec, f.name), getattr(filt, f.name))
@@ -236,7 +252,7 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
     the state's device.  With ``imu_batch`` (this camera interval's
     samples) the predict is the IMU strapdown propagation; otherwise the
     vision-driven random-walk process.  Returns (EngineState, outputs)."""
-    _check_slice(cfg)
+    sq = cfg.square_root_form  # factor-native mode: filt.Sigma holds L
     filt = estate.filt
     dev = filt.device
     img = _f32(img, dev)
@@ -253,11 +269,14 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
             # appended as a zero-order-hold sample (dt = 0: a no-op)
             rem = torch.clamp(t - (filt.t + torch.sum(imu_batch.dt)), min=0.0)
             batch = imu_mod.extend_batch_with_remainder(imu_batch, rem)
-            filt, frame_qt = imu_mod.propagate_imu_batch_with_motion(
-                filt, cfg, batch, gravity_w, lin_base=lin)
+            propagate = (sqrt_filter.propagate_imu_factor if sq
+                         else imu_mod.propagate_imu_batch_with_motion)
+            filt, frame_qt = propagate(filt, cfg, batch, gravity_w,
+                                       lin_base=lin)
     else:
         with record_function("vio.predict"):
-            filt = ekf.predict(filt, cfg, dt)
+            predict = sqrt_filter.predict_sqrt_factor if sq else ekf.predict
+            filt = predict(filt, cfg, dt)
     filt = filt.replace(t=t.to(filt.t.dtype))
     new_lin_base = filt.base_mu  # FEJ anchor for the next interval
 
@@ -283,7 +302,7 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
                 gate_cov = klt.measurement_covariance_metric(
                     cam.fx, cam.fy, cfg.max_features, cfg, device=dev)
                 nis_f = innovation_nis_per_feature(filt, measured_uv,
-                                                   gate_cov)
+                                                   gate_cov, factor=sq)
                 passed = passed & (nis_f <= cfg.innovation_gate_chi2)
 
     if imu_batch is not None and cfg.triangulate_new_features:
@@ -297,16 +316,18 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
         meas_cov = _measurement_covariance(cfg, cam, estate.prev_pyr[0],
                                            cur_pyr[0], prev_px, res.points)
         innov = ekf.innovation_stats(filt, measured_uv, passed)
-        nis = innovation_nis(filt, measured_uv, meas_cov, passed)
-        filt = ekf.update_with_feature_positions(filt, cfg, measured_uv,
-                                                 meas_cov, passed)
+        nis = innovation_nis(filt, measured_uv, meas_cov, passed, factor=sq)
+        update = (sqrt_filter.update_sqrt_factor if sq
+                  else ekf.update_with_feature_positions)
+        filt = update(filt, cfg, measured_uv, meas_cov, passed)
         num_tracked = torch.sum(passed & filt.active, dtype=torch.int32)
-        filt = ekf.drop_features(filt, filt.active & ~passed)
+        drop = sqrt_filter.drop_features_factor if sq else ekf.drop_features
+        filt = drop(filt, filt.active & ~passed)
 
     # tracking lost: too few surviving tracks or a non-finite state
     lost = ((num_tracked < cfg.minimum_trackable_features)
             | ~torch.isfinite(filt.base_mu).all()
-            | ~torch.isfinite(torch.diagonal(filt.Sigma)).all())
+            | ~torch.isfinite(_filter_sigma_diag(filt, cfg)).all())
     if cfg.recover_on_tracking_lost:
         filt = _recover_tracking_lost(filt, cfg, lost)
         new_lin_base = torch.where(lost, filt.base_mu, new_lin_base)
@@ -324,17 +345,23 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
             depths, depth_vars = _two_view_depths(
                 filt, cfg, cam, estate.prev_pyr, cur_pyr, cand_px, cand_uv,
                 cand_valid, dt)
-        filt = ekf.add_features(filt, cfg, cand_uv, cand_valid, depths=depths,
-                                depth_vars=depth_vars)
+        add = sqrt_filter.add_features_factor if sq else ekf.add_features
+        filt = add(filt, cfg, cand_uv, cand_valid, depths=depths,
+                   depth_vars=depth_vars)
 
+    if sq:
+        L3 = filt.Sigma[:3, :]
+        pos_cov = L3 @ L3.T
+    else:
+        pos_cov = filt.Sigma[:3, :3]
     out = StepOutputs(
         base_mu=filt.base_mu,
         num_tracked=num_tracked,
         num_active=filt.num_active(),
         mean_innovation=innov,
-        pose_cov_diag=torch.diagonal(filt.Sigma)[:7],
+        pose_cov_diag=_filter_sigma_diag(filt, cfg)[:7],
         tracking_lost=lost,
-        pos_cov=filt.Sigma[:3, :3],
+        pos_cov=pos_cov,
         mean_nis=nis,
     )
     return EngineState(filt=filt, prev_pyr=cur_pyr,
@@ -371,7 +398,6 @@ def initialize_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
     init_frames-1 with a metric velocity, IMU biases and metrically
     consistent feature depths.  The world frame is frame 0's camera."""
     use_f32_matmul()
-    _check_slice(cfg)
     dev = resolve_device(device)
     images, times = _f32(images, dev), _f32(times, dev)
     imu_dt, imu_gyro = _f32(imu_dt, dev), _f32(imu_gyro, dev)
@@ -435,6 +461,8 @@ def initialize_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
     Sigma = filt.Sigma.clone()
     Sigma.diagonal().copy_(d)
     filt = filt.replace(Sigma=Sigma)
+    if cfg.square_root_form:  # factor once; the loop never re-factors
+        filt = sqrt_filter.to_factor(filt)
     return EngineState(filt=filt, prev_pyr=pyr,
                        frame_idx=torch.full((), k, dtype=torch.int32,
                                             device=dev),

@@ -15,7 +15,9 @@ Two level trackers, each a plain PyTorch function and a CUDA kernel:
   ``pallas_lk`` tracker.
 * ``track_level_klt_plain`` ports ``pallas_klt._kernel`` (40x40 patches
   at origins clamped into the image, a fixed iteration count with a
-  multiplicative live mask); its kernel is ``klt_level`` (``klt_cuda``).
+  multiplicative live mask); ``track_pyramid_klt_plain`` loops it over
+  consecutive levels.  Their kernel is ``klt_level`` (``klt_cuda``), one
+  launch per run of levels.
 
 ``track`` picks between them per level by the JAX package's own rule
 (``selected_backend``), reading ``cfg.use_pallas_klt`` where the JAX
@@ -280,6 +282,32 @@ def track_level_klt_plain(prev, cur, q, g, valid, *, win: int, iters: int,
     return g, ok, min_eig, err
 
 
+def track_pyramid_klt_plain(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
+                            lo: int, hi: int, win: int, iters: int,
+                            eps: float, min_eigen: float):
+    """Levels hi down to lo of ``track_level_klt_plain``, as ``track``
+    loops over them under the 'pallas_klt' rule: the plain version of one
+    ``klt_level`` pyramid launch.
+
+    prev_pts, init_pts: [N, 2] level-0 px; the guess enters level hi as
+    init_pts / 2**hi and each finer level as twice the coarser result;
+    ``valid`` of a level is ``valid`` and the ok of every coarser one;
+    the min-eigenvalue gate holds at level 0 only (min_eigen = -1
+    elsewhere).  Returns level lo's (g [N,2] in its px, ok [N] bool
+    including ``valid``, min_eig [N], err [N])."""
+    g = init_pts / float(2 ** hi)
+    ok = valid
+    for lvl in range(hi, lo - 1, -1):
+        g, inb, min_eig, err = track_level_klt_plain(
+            prev_pyr[lvl], cur_pyr[lvl], prev_pts / float(2 ** lvl), g, ok,
+            win=win, iters=iters, eps=eps,
+            min_eigen=min_eigen if lvl == 0 else -1.0)
+        ok = ok & inb
+        if lvl > lo:
+            g = g * 2.0
+    return g, ok, min_eig, err
+
+
 def lk_supported(n: int, win: int) -> bool:
     """``pallas_lk.supported``: the corr-table tracker's envelope (the
     image size does not enter it)."""
@@ -324,10 +352,11 @@ def track(prev_pyr: tuple, cur_pyr: tuple, prev_pts: torch.Tensor,
     level-0 px guesses in the current frame (OPTFLOW_USE_INITIAL_FLOW,
     KLTTracker.cpp:53-64); valid: [N] bool.  Levels smaller than the
     window are skipped, as cv::buildOpticalFlowPyramid clamps maxLevel.
-    Under the 'pallas_klt' rule each level that ``klt_supported`` takes
-    runs klt_level (eigen gate at level 0 only, via min_eigen = -1 on
-    coarse levels); every run of consecutive other levels (all levels
-    under the 'lk' rule) is one ``lk_cuda.track_pyramid`` call of up to
+    Under the 'pallas_klt' rule every run of consecutive levels that
+    ``klt_supported`` takes is one ``klt_cuda.track_pyramid`` call (eigen
+    gate at level 0 only, min_eigen = -1 on coarse levels); every run of
+    consecutive other levels (all levels under the 'lk' rule) is one
+    ``lk_cuda.track_pyramid`` call.  A call takes at most
     ``lk_cuda.MAX_LEVELS`` levels."""
     win = cfg.klt_window_size
     n = prev_pts.shape[0]
@@ -344,24 +373,16 @@ def track(prev_pyr: tuple, cur_pyr: tuple, prev_pts: torch.Tensor,
     ok = valid
     lvl = top
     while lvl >= 0:
-        lo = lvl  # the finest level of this step
-        if by_klt(lvl):
-            if g is None:
-                g = init_pts / float(2 ** lvl)
-            g, inb, min_eig, err = klt_cuda.track_level(
-                prev_pyr[lvl], cur_pyr[lvl], prev_pts / float(2 ** lvl), g,
-                ok, win=win, iters=cfg.klt_iterations, eps=cfg.klt_eps,
-                min_eigen=cfg.klt_min_eigen if lvl == 0 else -1.0)
-            ok = ok & inb
-        else:
-            while (lo > 0 and not by_klt(lo - 1)
-                   and lvl - lo + 1 < lk_cuda.MAX_LEVELS):
-                lo -= 1
-            # the pyramid call takes level-0 guesses; scaling by a power
-            # of two and back is exact
-            init = init_pts if g is None else g * float(2 ** lvl)
-            g, ok, min_eig, err = lk_cuda.track_pyramid(
-                prev_pyr, cur_pyr, prev_pts, init, ok, cfg, lo, lvl)
+        kernel = klt_cuda if by_klt(lvl) else lk_cuda
+        lo = lvl  # the finest level of this call
+        while (lo > 0 and by_klt(lo - 1) == by_klt(lvl)
+               and lvl - lo + 1 < kernel.MAX_LEVELS):
+            lo -= 1
+        # a pyramid call takes level-0 guesses; scaling by a power of two
+        # and back is exact
+        init = init_pts if g is None else g * float(2 ** lvl)
+        g, ok, min_eig, err = kernel.track_pyramid(
+            prev_pyr, cur_pyr, prev_pts, init, ok, cfg, lo, lvl)
         if lo > 0:
             g = g * 2.0
         lvl = lo - 1

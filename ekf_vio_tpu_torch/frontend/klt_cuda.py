@@ -1,11 +1,15 @@
-"""One whole-level LK pass on the card: the ``klt_level`` CUDA kernel.
+"""Whole-level LK on the card: the ``klt_level`` CUDA kernel.
 
-Port of ``ekf_vio_tpu/frontend/pallas_klt.py`` (its ``_kernel``, one
-launch per level, ``csrc/klt_level.cu``).  ``track_level`` launches the
-kernel for CUDA tensors and runs the plain version
-``frontend/klt.py track_level_klt_plain`` for CPU tensors.  Any N is
-taken; the JAX kernel's ``N % 32 == 0`` lives only in the dispatch rule
-(``klt.klt_supported``).  The level must be at least 40x40.
+Port of ``ekf_vio_tpu/frontend/pallas_klt.py`` (its ``_kernel``,
+``csrc/klt_level.cu``).  One launch tracks every feature through up to
+``MAX_LEVELS`` consecutive pyramid levels, coarse to fine, as
+``klt.track``'s level loop does under the 'pallas_klt' rule.
+``track_pyramid`` launches the kernel for CUDA tensors and runs the plain
+version ``frontend/klt.py track_pyramid_klt_plain`` for CPU tensors;
+``track_level`` / ``track_level_cuda`` are the same kernel on one level.
+Any N and any window up to 40 px are taken; the JAX kernel's
+``N % 32 == 0`` lives only in the dispatch rule (``klt.klt_supported``).
+Every level must be at least 40x40.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ from ekf_vio_tpu_torch.frontend import lk_cuda
 SOURCE = "ekf_vio_tpu_torch/csrc/klt_level.cu"
 REPLACES = "ekf_vio_tpu/frontend/pallas_klt.py:138"
 PATCH = 40  # pallas_klt.PATCH
+MAX_LEVELS = lk_cuda.MAX_LEVELS  # csrc/klt_level.cu kMaxLevels
 
-# kernel launches (one per pyramid level) since the last reset
+# kernel launches (one per pyramid call or level call) since the last reset
 launches = 0
 
 
@@ -29,40 +34,61 @@ launches = 0
 def _lib():
     lib = cuda_lib.load("klt_level")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.klt_track_level.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci,
-                                    cf, cf, vp, vp, vp, vp, ci, vp]
-    lib.klt_track_level.restype = ctypes.c_int
+    lib.klt_track_pyramid.argtypes = [lk_cuda.Levels, ci, vp, vp, vp, ci, ci,
+                                      ci, cf, cf, ci, ci, vp, vp, vp, vp, ci,
+                                      vp]
+    lib.klt_track_pyramid.restype = ctypes.c_int
+    if lib.klt_max_levels() != MAX_LEVELS:
+        raise RuntimeError("klt_level.cu and klt_cuda.py disagree on the "
+                           "number of levels")
     return lib
+
+
+def _check_sizes(levels, win: int) -> None:
+    if not 1 <= win <= PATCH:
+        raise ValueError(f"window {win} does not fit the {PATCH}-px patch")
+    for img in levels:
+        h, w = img.shape
+        if h < PATCH or w < PATCH:
+            raise ValueError(f"klt_level needs levels of at least {PATCH}x"
+                             f"{PATCH}, got {h}x{w}")
+
+
+def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
+            iters: int, eps: float, min_eigen: float, gate_finest: bool,
+            include_valid: bool):
+    """One kernel launch over the given levels (finest first)."""
+    global launches
+    n = pts.shape[0]
+    dev = pts.device
+    g_out = torch.empty_like(pts)
+    ok = torch.empty_like(valid)
+    stats = torch.empty(2, n, dtype=torch.float32, device=dev)
+    lib = _lib()
+    rc = lib.klt_track_pyramid(
+        lk_cuda.Levels.of(prevs, curs, inv_scales), len(prevs),
+        pts.data_ptr(), init.data_ptr(), valid.data_ptr(), n, win, iters,
+        float(eps) ** 2, float(min_eigen), int(gate_finest),
+        int(include_valid), g_out.data_ptr(), ok.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), dev.index,
+        cuda_lib.stream_ptr(pts))
+    cuda_lib.check(lib, rc, "klt_track_pyramid")
+    launches += 1
+    return g_out, ok, stats[0], stats[1]
 
 
 def track_level_cuda(prev, cur, q, g, valid, *, win: int, iters: int,
                      eps: float, min_eigen: float):
-    """Launch the kernel for one level.  Returns (g [N,2], ok [N] bool,
-    min_eig [N], err [N]); ok does NOT include ``valid``."""
-    global launches
+    """One level through the kernel.  q, g: [N, 2] in this level's px.
+    Returns (g [N,2], ok [N] bool, min_eig [N], err [N]); ok does NOT
+    include ``valid``."""
     if not prev.is_cuda:
         raise ValueError("track_level_cuda needs CUDA tensors")
     lk_cuda.check_inputs(prev, cur, q, g, valid)
-    h, w = prev.shape
-    if h < PATCH or w < PATCH:
-        raise ValueError(f"klt_level needs a level of at least {PATCH}x"
-                         f"{PATCH}, got {h}x{w}")
-    if not 1 <= win <= PATCH:
-        raise ValueError(f"window {win} does not fit the {PATCH}-px patch")
-    n = q.shape[0]
-    g_out = torch.empty_like(g)
-    ok = torch.empty_like(valid)
-    eig = torch.empty(n, dtype=torch.float32, device=prev.device)
-    err = torch.empty(n, dtype=torch.float32, device=prev.device)
-    lib = _lib()
-    rc = lib.klt_track_level(
-        prev.data_ptr(), cur.data_ptr(), h, w, q.data_ptr(), g.data_ptr(),
-        valid.data_ptr(), n, win, iters, float(eps) ** 2, float(min_eigen),
-        g_out.data_ptr(), ok.data_ptr(), eig.data_ptr(), err.data_ptr(),
-        prev.device.index, cuda_lib.stream_ptr(prev))
-    cuda_lib.check(lib, rc, "klt_track_level")
-    launches += 1
-    return g_out, ok, eig, err
+    _check_sizes([prev], win)
+    return _launch([prev], [cur], [1.0], q, g, valid, win=win, iters=iters,
+                   eps=eps, min_eigen=min_eigen, gate_finest=True,
+                   include_valid=False)
 
 
 def track_level(prev, cur, q, g, valid, *, win: int, iters: int, eps: float,
@@ -75,3 +101,52 @@ def track_level(prev, cur, q, g, valid, *, win: int, iters: int, eps: float,
     from ekf_vio_tpu_torch.frontend import klt
 
     return klt.track_level_klt_plain(prev, cur, q, g, valid, **kw)
+
+
+def check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo: int,
+                  hi: int, win: int) -> None:
+    """Raise on what ``track_pyramid`` does not take: what
+    ``lk_cuda.check_pyramid`` refuses, a level under 40x40, a window over
+    40 px."""
+    lk_cuda.check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo,
+                          hi)
+    _check_sizes(prev_pyr[lo: hi + 1], win)
+
+
+def track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
+                       lo: int, hi: int, win: int, iters: int, eps: float,
+                       min_eigen: float):
+    """Levels hi down to lo in one launch; see ``track_pyramid``."""
+    if not prev_pts.is_cuda:
+        raise ValueError("track_pyramid_cuda needs CUDA tensors")
+    check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi, win)
+    levels = range(lo, hi + 1)
+    return _launch([prev_pyr[lvl] for lvl in levels],
+                   [cur_pyr[lvl] for lvl in levels],
+                   [2.0 ** -lvl for lvl in levels], prev_pts, init_pts,
+                   valid, win=win, iters=iters, eps=eps, min_eigen=min_eigen,
+                   gate_finest=lo == 0, include_valid=True)
+
+
+def track_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, cfg, lo: int,
+                  hi: int):
+    """Whole-level LK over levels hi down to lo, as ``klt.track``'s level
+    loop runs them under the 'pallas_klt' rule: the kernel on CUDA
+    tensors, the plain version on CPU tensors.
+
+    prev_pts, init_pts: [N, 2] level-0 px (the guess enters level hi as
+    init_pts / 2**hi); valid: [N] bool.  Returns level lo's (g [N,2] in
+    its px, ok [N] bool, min_eig [N], err [N]); ok is ``valid`` and every
+    level's ok, with the min-eigenvalue gate at level 0 only."""
+    kw = dict(lo=lo, hi=hi, win=cfg.klt_window_size,
+              iters=cfg.klt_iterations, eps=cfg.klt_eps,
+              min_eigen=cfg.klt_min_eigen)
+    if prev_pts.is_cuda:
+        return track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts,
+                                  valid, **kw)
+    check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi,
+                  cfg.klt_window_size)
+    from ekf_vio_tpu_torch.frontend import klt
+
+    return klt.track_pyramid_klt_plain(prev_pyr, cur_pyr, prev_pts, init_pts,
+                                       valid, **kw)

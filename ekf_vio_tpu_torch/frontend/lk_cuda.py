@@ -29,20 +29,33 @@ MAX_WINDOW = 32  # at most 4 window pixels per thread, 256 threads a feature
 launches = 0
 
 
-class _Levels(ctypes.Structure):
-    """csrc/lk_level.cu ``LkLevels``, passed by value."""
+class Levels(ctypes.Structure):
+    """csrc/lk_level.cu ``LkLevels`` and csrc/klt_level.cu ``KltLevels``
+    (the same layout), passed by value: the levels of one call, finest
+    first."""
     _fields_ = [("prev", ctypes.c_void_p * MAX_LEVELS),
                 ("cur", ctypes.c_void_p * MAX_LEVELS),
                 ("h", ctypes.c_int * MAX_LEVELS),
                 ("w", ctypes.c_int * MAX_LEVELS),
                 ("inv_scale", ctypes.c_float * MAX_LEVELS)]
 
+    @classmethod
+    def of(cls, prevs, curs, inv_scales) -> "Levels":
+        """The struct for these level images (finest first) and the
+        factors from the caller's points to each level."""
+        lv = cls()
+        for e, (p, c, s) in enumerate(zip(prevs, curs, inv_scales)):
+            lv.prev[e], lv.cur[e] = p.data_ptr(), c.data_ptr()
+            lv.h[e], lv.w[e] = p.shape
+            lv.inv_scale[e] = s
+        return lv
+
 
 @functools.cache
 def _lib():
     lib = cuda_lib.load("lk_level")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_track_pyramid.argtypes = [_Levels, ci, vp, vp, vp, ci, ci, ci, cf,
+    lib.lk_track_pyramid.argtypes = [Levels, ci, vp, vp, vp, ci, ci, ci, cf,
                                      cf, ci, vp, vp, vp, vp, ci, vp]
     lib.lk_track_pyramid.restype = ctypes.c_int
     if lib.lk_max_levels() != MAX_LEVELS:
@@ -112,17 +125,13 @@ def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
     g_out = torch.empty_like(pts)
     ok = torch.empty_like(valid)
     stats = torch.empty(2, n, dtype=torch.float32, device=dev)
-    lv = _Levels()
-    for e, (p, c, s) in enumerate(zip(prevs, curs, inv_scales)):
-        lv.prev[e], lv.cur[e] = p.data_ptr(), c.data_ptr()
-        lv.h[e], lv.w[e] = p.shape
-        lv.inv_scale[e] = s
     lib = _lib()
     rc = lib.lk_track_pyramid(
-        lv, len(prevs), pts.data_ptr(), init.data_ptr(), valid.data_ptr(),
-        n, win, iters, float(eps) ** 2, float(min_eigen), int(gate_finest),
-        g_out.data_ptr(), ok.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), dev.index, cuda_lib.stream_ptr(pts))
+        Levels.of(prevs, curs, inv_scales), len(prevs), pts.data_ptr(),
+        init.data_ptr(), valid.data_ptr(), n, win, iters, float(eps) ** 2,
+        float(min_eigen), int(gate_finest), g_out.data_ptr(), ok.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), dev.index,
+        cuda_lib.stream_ptr(pts))
     cuda_lib.check(lib, rc, "lk_track_pyramid")
     launches += 1
     return g_out, ok, stats[0], stats[1]

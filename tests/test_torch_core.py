@@ -248,16 +248,25 @@ class TestUpdate:
                jupd.innovation_nis(ref_s, z, R, passed), 1e-4)
 
     def test_off_slice_options_raise(self):
+        """What the port still refuses is what the JAX package refuses:
+        ``budget`` with ``square_root_form`` (ValueError in both).  The
+        options that used to be off the slice run."""
         d, z, R, passed = self._inputs(15, 0.5)
         s = interop.filter_state_from_numpy(d, "cpu")
         args = (torch.from_numpy(z), torch.from_numpy(R),
                 torch.from_numpy(passed))
-        with pytest.raises(NotImplementedError):
-            update.update_with_feature_positions(
-                s, VIOConfig(max_features=N), *args, budget=4)
-        with pytest.raises(NotImplementedError):
-            update.update_with_feature_positions(
-                s, VIOConfig(max_features=N, joseph_form="product"), *args)
-        with pytest.raises(NotImplementedError):
-            tfilt.predict(s, VIOConfig(max_features=N, square_root_form=True),
-                          0.05)
+        sq = dict(max_features=N, square_root_form=True)
+        with pytest.raises(ValueError, match="budget"):
+            tfilt.update_with_feature_positions(s, VIOConfig(**sq), *args,
+                                                budget=4)
+        with pytest.raises(ValueError, match="budget"):
+            jfilt.update_with_feature_positions(
+                _jax_state(d), JConfig(**sq), jnp.asarray(z), jnp.asarray(R),
+                jnp.asarray(passed), budget=4)
+        for cfg, kw in ((VIOConfig(max_features=N), dict(budget=4)),
+                        (VIOConfig(max_features=N, joseph_form="product"),
+                         {})):
+            out = update.update_with_feature_positions(s, cfg, *args, **kw)
+            assert torch.isfinite(out.Sigma).all()
+        out = tfilt.predict(s, VIOConfig(**sq), 0.05)
+        assert torch.isfinite(out.Sigma).all()

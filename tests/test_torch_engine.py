@@ -148,14 +148,26 @@ def test_recover_tracking_lost_matches_jax():
 
 @pytest.mark.parametrize("option", [dict(square_root_form=True)])
 def test_off_slice_options_raise(option):
+    """No option of the JAX engine is off the port's slice any more: a
+    step under the option runs (its parity: test_torch_sqrt_engine.py).
+    What is still refused is what the JAX package refuses, ``budget``
+    with ``square_root_form``."""
+    from ekf_vio_tpu_torch.core import filter as tfilt
+
     small, times = _small_frames(2)
     cam = interop.camera_from_K(K, W, H)
-    es = engine.initialize(torch.from_numpy(small[0]), times[0],
-                           VIOConfig(max_features=32, **BENCH_KW), cam,
+    cfg = VIOConfig(max_features=32, **BENCH_KW, **option)
+    es = engine.initialize(torch.from_numpy(small[0]), times[0], cfg, cam,
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.step(es, torch.from_numpy(small[1]), torch.tensor(times[1]),
-                    VIOConfig(max_features=32, **BENCH_KW, **option), cam)
+    es1, out = engine.step(es, torch.from_numpy(small[1]),
+                           torch.tensor(times[1]), cfg, cam)
+    assert torch.isfinite(es1.filt.Sigma).all() and int(out.num_tracked) > 10
+    n = cfg.max_features
+    with pytest.raises(ValueError, match="budget"):
+        tfilt.update_with_feature_positions(
+            tfilt.init_state(cfg), cfg, torch.zeros(n, 2),
+            torch.eye(2).expand(n, 2, 2), torch.ones(n, dtype=torch.bool),
+            budget=n - 1)
 
 
 def test_entry_points_run_on_the_card_unless_asked():
@@ -238,6 +250,62 @@ def test_step_option_matches_jax(name):
                or np.abs(np.asarray(es1.filt.feat_mu)
                          - np.asarray(base1.filt.feat_mu)).max() > 1e-6)
     assert changed, name
+
+
+def test_fast_with_insight_profile_matches_jax(jax_fast_rule):
+    """configs/fast_with_insight.yaml with bench.py's overrides, cut to 64
+    slots (48 features) and 5 frames of the bench sequence at ÷2
+    (320x240, where FAST masks its margin before NMS): the 'lk' tracker
+    rule as at 512 slots, equal counts on every frame, and one step from
+    the JAX package's state at the per-step bars."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "configs", "fast_with_insight.yaml")
+    over = dict(min_new_feature_dist=8.0, fast_threshold=30)
+    full, jfull = VIOConfig.from_yaml(path), JConfig.from_yaml(path)
+    assert (full.num_features, full.max_features,
+            full.inverse_image_scale) == (400, 512, 2)
+    assert full == VIOConfig.from_dict(
+        {f: getattr(jfull, f) for f in ("num_features", "max_features",
+                                        "inverse_image_scale",
+                                        "fast_threshold")})
+    from ekf_vio_tpu_torch.frontend import klt
+
+    assert klt.selected_backend((240, 320), 512, full.replace(**over),
+                                "cuda") == "cuda_lk"
+    cut = dict(over, max_features=64, num_features=48)
+    cfg, jcfg = full.replace(**cut), jfull.replace(**cut)
+    assert klt.selected_backend((240, 320), 64, cfg, "cpu") == "torch_lk"
+
+    frames, times = sim_frames.make_frames(seed=0, n_frames=5)
+    s = cfg.inverse_image_scale
+    small = np.array(jcam.downscale_image(jnp.asarray(frames), s))
+    w, h = 640 // s, 480 // s
+    Ks = [[458.0 / s, 0.0, w / 2], [0.0, 458.0 / s, h / 2], [0.0, 0.0, 1.0]]
+    jc = jengine.make_hashable_camera(Ks, w, h)
+    cam = interop.camera_from_K(Ks, w, h)
+    jes, jout = jengine.run_sequence(jnp.asarray(small[:4]),
+                                     jnp.asarray(times[:4]), jcfg, jc)
+    es, out = engine.run_sequence(torch.from_numpy(small[:4]),
+                                  torch.from_numpy(times[:4]), cfg, cam,
+                                  device="cpu")
+    np.testing.assert_array_equal(out.num_tracked.numpy(),
+                                  np.asarray(jout.num_tracked))
+    np.testing.assert_array_equal(out.num_active.numpy(),
+                                  np.asarray(jout.num_active))
+    assert out.num_tracked.min() > 30
+    # one step from the carried JAX state
+    es1, jo = jax.jit(jengine.step, static_argnums=(3, 4))(
+        jes, jnp.asarray(small[4]), jnp.float32(times[4]), jcfg, jc)
+    ts0 = interop.engine_state_from_numpy(_jax_state_dict(jes), "cpu")
+    ts1, o = engine.step(ts0, torch.from_numpy(small[4]),
+                         torch.tensor(times[4]), cfg, cam)
+    assert int(o.num_tracked) == int(jo.num_tracked) > 30
+    assert int(o.num_active) == int(jo.num_active)
+    _assert_step_close(ts1, es1)
+    sig = ts1.filt.Sigma.numpy()
+    assert np.diag(sig).min() >= -1e-5 and np.abs(sig - sig.T).max() < 1e-3
 
 
 @pytest.fixture

@@ -5,8 +5,8 @@ on a machine with a card it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Bars: lk_level (one level per launch, and a whole pyramid per launch) and
-klt_level — status identical, points within 2e-3 px, err within 1e-2 and
+Bars: lk_level and klt_level (one level per launch, and a whole pyramid
+per launch) — status identical, points within 2e-3 px, err within 1e-2 and
 min_eig within rtol 1e-3 where tracked (window sums reduce in another
 order), the same finiteness of every point; fast9 — bitwise on
 integer-valued frames, 1e-4 otherwise, at both margin orders, also on
@@ -196,6 +196,46 @@ class TestKernelsOnCard:
                                            atol=1e-2)
                 np.testing.assert_allclose(_np(eig)[both], _np(reig)[both],
                                            rtol=1e-3)
+
+    @pytest.mark.parametrize("case", ["plain", "border", "nan_and_invalid",
+                                      "far_guess", "n100"])
+    @pytest.mark.parametrize("win", [17, 21, 9])
+    def test_klt_pyramid_kernel_matches_plain_twin(self, cuda, case, win):
+        """Levels 2-0 of a 320x240 scene in one launch against the plain
+        level loop; win 9 runs the generic instantiation."""
+        n = 100 if case == "n100" else 64
+        prev, cur, q = _scene(h=240, w=320, n=n, seed=7)
+        q = q.copy()
+        init = q + np.float32([0.6, -0.3])
+        valid = np.ones(n, bool)
+        if case == "border":
+            q[:6] = [(2.5, 2.5), (316.0, 120.0), (150.0, 236.5),
+                     (10.2, 200.7), (305.3, 8.9), (40.0, 16.0)]
+            init = q + np.float32([0.6, -0.3])
+        elif case == "nan_and_invalid":
+            q[5] = np.nan
+            init[9] = np.nan
+            valid[[5, 9, 11]] = False
+        elif case == "far_guess":
+            init[::2] += np.float32([30.0, -26.0])
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+        pp = pyramid.build_pyramid(t(prev), 3)
+        cp = pyramid.build_pyramid(t(cur), 3)
+        kw = dict(lo=0, hi=2, win=win, iters=30, eps=0.01, min_eigen=1e-4)
+        before = klt_cuda.launches
+        g, ok, eig, err = klt_cuda.track_pyramid_cuda(
+            pp, cp, t(q), t(init), t(valid), **kw)
+        assert klt_cuda.launches == before + 1
+        rg, rok, reig, rerr = klt.track_pyramid_klt_plain(
+            pp, cp, t(q), t(init), t(valid), **kw)
+        np.testing.assert_array_equal(_np(ok), _np(rok))
+        np.testing.assert_array_equal(np.isfinite(_np(g)),
+                                      np.isfinite(_np(rg)))
+        both = _np(ok)
+        assert both.any()
+        assert np.abs(_np(g) - _np(rg))[both].max() <= 2e-3
+        np.testing.assert_allclose(_np(err)[both], _np(rerr)[both], atol=1e-2)
+        np.testing.assert_allclose(_np(eig)[both], _np(reig)[both], rtol=1e-3)
 
     @pytest.mark.parametrize("integer", [True, False])
     @pytest.mark.parametrize("shape", [(120, 160), (240, 320)])
