@@ -115,14 +115,41 @@ class VIOConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "VIOConfig":
-        """Load overrides from a YAML profile (``configs/*.yaml``)."""
-        import yaml
-
+        """Load overrides from a YAML profile (``configs/*.yaml``, flat
+        ``key: value`` maps) with ``parse_flat_yaml``: no PyYAML needed."""
         with open(path) as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+            return cls.from_dict(parse_flat_yaml(f.read()))
 
     def replace(self, **kw) -> "VIOConfig":
         return dataclasses.replace(self, **kw)
+
+
+def parse_flat_yaml(text: str) -> dict:
+    """A flat YAML map of scalars (``key: value`` lines, ``#`` comments):
+    booleans, integers, floats and plain strings, as ``yaml.safe_load``
+    reads them."""
+    out = {}
+    for line in text.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        key, sep, value = line.partition(":")
+        if not sep or not key.strip() or not value.strip():
+            raise ValueError(f"not a flat 'key: value' line: {line!r}")
+        value = value.strip()
+        low = value.lower()
+        if low in ("true", "false"):
+            out[key.strip()] = low == "true"
+            continue
+        for conv in (int, float):
+            try:
+                out[key.strip()] = conv(value)
+                break
+            except ValueError:
+                pass
+        else:
+            out[key.strip()] = value.strip("'\"")
+    return out
 
 
 # Base-state index map (TightlyCoupledEKF.cpp:328-393):

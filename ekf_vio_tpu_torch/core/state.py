@@ -49,6 +49,23 @@ class FilterState:
         return dataclasses.replace(self, **kw)
 
 
+def register_dataclass_pytree(cls) -> None:
+    """Make a dataclass of tensors a pytree, so ``torch.func.vmap`` maps
+    over its fields (idempotent)."""
+    from torch.utils import _pytree
+
+    if cls in _pytree.SUPPORTED_NODES:
+        return
+    names = [f.name for f in dataclasses.fields(cls)]
+    _pytree.register_pytree_node(
+        cls, lambda x: ([getattr(x, k) for k in names], None),
+        lambda values, _: cls(**dict(zip(names, values))),
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+
+
+register_dataclass_pytree(FilterState)
+
+
 def init_state(cfg: VIOConfig, t0: float = 0.0, device=None,
                dtype=torch.float32) -> FilterState:
     """Initial state (TightlyCoupledEKF.cpp:23-56): unit quaternion, pose
@@ -91,8 +108,9 @@ def plan_insertion(active: torch.Tensor, valid: torch.Tensor):
     # scatter each valid candidate to its rank; invalid ones land in a
     # spill entry k that is sliced off (JAX's mode="drop")
     dest = torch.where(valid, cand_rank.long(), k)
-    idx_of_rank = torch.zeros(k + 1, dtype=torch.long, device=valid.device)
-    idx_of_rank.scatter_(0, dest, torch.arange(k, device=valid.device))
+    idx_of_rank = torch.zeros(k + 1, dtype=torch.long,
+                              device=valid.device).scatter(
+        0, dest, torch.arange(k, device=valid.device))
     src = idx_of_rank[:k][free_rank.clamp(0, k - 1).long()]
     return take, src
 

@@ -20,6 +20,11 @@
 // NMS.  The kernel this replaced spent two launches and a full-frame score
 // scratch on it.
 //
+// Lanes: a [lanes, h, w] stack of frames is one launch, grid.z = lanes
+// (the counterpart of a vmap over detect_pallas); block (x, y, z) reads
+// and writes frame z only, with the arithmetic of a one-frame launch, so
+// each lane is bitwise equal to a one-frame launch on it.
+//
 // Design: one launch and no device-memory scratch.  A block owns a
 // kTileW x kRows output tile and has one thread per position of its score
 // tile (the output tile and a 1-px ring), so the chain is one round of
@@ -34,8 +39,8 @@
 // are selected: summing only the qualifying arcs behind a branch per arc
 // measured slower (PERF.md).
 //
-// C interface: fast9_detect(img, h, w, threshold, mask_first, out, device,
-// stream) launches on `stream` of `device` and returns cudaGetLastError().
+// C interface: fast9_detect(img, lanes, h, w, threshold, mask_first, out,
+// device, stream) launches on `stream` of `device` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -108,6 +113,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sc[kScoreH * kScoreW];  // scores with a 1-px ring
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kRows;
+  img += static_cast<long long>(blockIdx.z) * h * w;  // this lane's frame
+  out += static_cast<long long>(blockIdx.z) * h * w;
 
   // every load in flight before the first store
   float v[kLoads];
@@ -162,13 +169,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int fast9_detect(const void* img, int h, int w, float threshold,
-                            int mask_first, void* out, int device,
-                            void* stream) {
+// img and out: [lanes, h, w] float32, each frame scored on its own.
+extern "C" int fast9_detect(const void* img, int lanes, int h, int w,
+                            float threshold, int mask_first, void* out,
+                            int device, void* stream) {
+  if (lanes < 1 || lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (h == 0 || w == 0) return 0;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kRows - 1) / kRows);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kRows - 1) / kRows, lanes);
   fast9_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), h, w, threshold, mask_first,
       static_cast<float*>(out));

@@ -51,6 +51,13 @@
 // reduction.  chip_smoke.py times the call with and without iterations
 // (PERF.md).
 //
+// Lanes: one launch tracks `lanes` independent sequences ([lanes, h, w]
+// level images, [lanes, n] features; the counterpart of a vmap over
+// track_level_pallas, which batches the Pallas grid).  Block (x, y) is
+// feature x of lane y and reads lane y's images; its arithmetic does not
+// depend on y, so a lane of a many-lane launch is bitwise equal to a
+// one-lane launch on that lane, and lanes = 1 is the one-lane launch.
+//
 // Design: one 256-thread block per feature carries it through every
 // level, coarse to fine, in one launch (a loop inside the block takes the
 // place of the host's level loop, its launches, wrapper calls and glue).
@@ -82,18 +89,22 @@
 
 constexpr int kMaxLevels = 4;
 
-// Level e of a call: its prev and cur images, their size, and 2^-(lo + e),
-// the factor from the caller's points to this level (multiplying by it is
-// exact, and equals dividing by 2^(lo + e)).  Outside the anonymous
-// namespace: a C entry taking a type of internal linkage gets internal
-// linkage itself.  The kernel indexes it only with compile-time indices,
-// so it stays in the parameter bank.
+// Level e of a call: its prev and cur images (lane 0's), their size,
+// 2^-(lo + e), the factor from the caller's points to this level
+// (multiplying by it is exact, and equals dividing by 2^(lo + e)), and the
+// elements from one lane's image to the next (h * w for a [lanes, h, w]
+// stack).  The same layout as csrc/lk_level.cu LkLevels and
+// frontend/lk_cuda.py Levels; klt_levels_size() lets the wrapper check it.
+// Outside the anonymous namespace: a C entry taking a type of internal
+// linkage gets internal linkage itself.  The kernel indexes it only with
+// compile-time indices, so it stays in the parameter bank.
 struct KltLevels {
   const float* prev[kMaxLevels];
   const float* cur[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   float inv_scale[kMaxLevels];
+  long long lane_stride[kMaxLevels];
 };
 
 namespace {
@@ -299,7 +310,8 @@ __device__ __forceinline__ void scharr_at(const float* ps, int r, int c,
 // ceil(win^2 / kThreads).
 template <int kWin, int kTaps>
 __global__ void __launch_bounds__(kThreads)
-    klt_pyramid_kernel(KltLevels lv, int nlev, const float* __restrict__ pts,
+    klt_pyramid_kernel(KltLevels lv, int nlev, int nfeat,
+                       const float* __restrict__ pts,
                        const float* __restrict__ init,
                        const unsigned char* __restrict__ valid, int win_rt,
                        int iters, float eps2, float min_eigen,
@@ -309,7 +321,8 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ eig_out,
                        float* __restrict__ err_out) {
   extern __shared__ __align__(16) float smem[];
-  const int n = blockIdx.x;
+  const int lane = blockIdx.y;
+  const int n = lane * nfeat + blockIdx.x;  // index into [lanes, nfeat]
   const int tid = threadIdx.x;
   const int win = kWin ? kWin : win_rt;
   const int ww = win * win;
@@ -326,6 +339,13 @@ __global__ void __launch_bounds__(kThreads)
   const float px = pts[2 * n], py = pts[2 * n + 1];
   float gx = init[2 * n], gy = init[2 * n + 1];
   bool alive = valid[n] != 0;  // valid & ok of every coarser level
+  const float* prev_img[kMaxLevels];  // this lane's level images
+  const float* cur_img[kMaxLevels];
+#pragma unroll
+  for (int e = 0; e < kMaxLevels; ++e) {
+    prev_img[e] = lv.prev[e] + lane * lv.lane_stride[e];
+    cur_img[e] = lv.cur[e] + lane * lv.lane_stride[e];
+  }
 
   // the window pixels this thread owns: row ti, column tj; a thread's
   // slots past the window point at pixel (0, 0), which the iterations
@@ -351,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
       const float pox = origin(qx[e], lv.w[e] - kPatch);
       const float poy = origin(qy[e], lv.h[e] - kPatch);
       tw[e] = window_at(__fsub_rn(qx[e], pox), __fsub_rn(qy[e], poy), half_f);
-      fetch(ps + e * kPP, lv.prev[e], lv.w[e], static_cast<int>(pox),
+      fetch(ps + e * kPP, prev_img[e], lv.w[e], static_cast<int>(pox),
             static_cast<int>(poy));
     }
     if (e == top) {
@@ -359,7 +379,7 @@ __global__ void __launch_bounds__(kThreads)
       gy = __fmul_rn(gy, lv.inv_scale[e]);
       cox = origin(gx, lv.w[e] - kPatch);
       coy = origin(gy, lv.h[e] - kPatch);
-      fetch(cs, lv.cur[e], lv.w[e], static_cast<int>(cox),
+      fetch(cs, cur_img[e], lv.w[e], static_cast<int>(cox),
             static_cast<int>(coy));
     }
   }
@@ -465,7 +485,7 @@ __global__ void __launch_bounds__(kThreads)
       // barrier every thread has passed, so the patch is free to refill
       cox = origin(gx, w - kPatch);
       coy = origin(gy, h - kPatch);
-      fetch(cs, lv.cur[e], w, static_cast<int>(cox), static_cast<int>(coy));
+      fetch(cs, cur_img[e], w, static_cast<int>(cox), static_cast<int>(coy));
       fetch_wait();
       round_patch(cs);
       __syncthreads();
@@ -543,7 +563,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int kWin, int kTaps>
 cudaError_t launch(const KltLevels& lv, int nlev, const float* pts,
                    const float* init, const unsigned char* valid, int n,
-                   int win, int iters, float eps2, float min_eigen,
+                   int lanes, int win, int iters, float eps2, float min_eigen,
                    int gate_finest, int include_valid, float* g_out,
                    unsigned char* ok_out, float* eig_out, float* err_out,
                    cudaStream_t stream) {
@@ -556,30 +576,32 @@ cudaError_t launch(const KltLevels& lv, int nlev, const float* pts,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<n, kThreads, smem, stream>>>(lv, nlev, pts, init, valid, win,
-                                        iters, eps2, min_eigen, gate_finest,
-                                        include_valid, g_out, ok_out, eig_out,
-                                        err_out);
+  kernel<<<dim3(n, lanes), kThreads, smem, stream>>>(
+      lv, nlev, n, pts, init, valid, win, iters, eps2, min_eigen, gate_finest,
+      include_valid, g_out, ok_out, eig_out, err_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // `levels` holds nlev (1..kMaxLevels) consecutive levels, finest first,
-// each at least 40 x 40; pts and init are [n, 2] in the units that
-// levels.inv_scale scales.  The eigen gate applies at the finest level
+// each at least 40 x 40 and a stack of `lanes` images
+// levels.lane_stride elements apart; pts and init are [lanes, n, 2] in the
+// units that levels.inv_scale scales, valid and the outputs [lanes, n]
+// (g_out [lanes, n, 2]).  The eigen gate applies at the finest level
 // when gate_finest is set, with min_eigen = -1 elsewhere.  ok_out is
 // valid & ok of every level when include_valid is set, else the finest
 // level's ok alone.  Returns a CUDA error code, or cudaErrorInvalidValue
 // for arguments outside that envelope.
 extern "C" int klt_track_pyramid(KltLevels levels, int nlev, const void* pts,
                                  const void* init, const void* valid, int n,
-                                 int win, int iters, float eps2,
+                                 int lanes, int win, int iters, float eps2,
                                  float min_eigen, int gate_finest,
                                  int include_valid, void* g_out, void* ok_out,
                                  void* eig_out, void* err_out, int device,
                                  void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || win < 1 || win > kPatch)
+  if (nlev < 1 || nlev > kMaxLevels || win < 1 || win > kPatch ||
+      lanes < 1 || lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int e = 0; e < nlev; ++e) {
     if (levels.h[e] < kPatch || levels.w[e] < kPatch)
@@ -591,8 +613,8 @@ extern "C" int klt_track_pyramid(KltLevels levels, int nlev, const void* pts,
   auto args = [&](auto launcher) {
     return launcher(levels, nlev, static_cast<const float*>(pts),
                     static_cast<const float*>(init),
-                    static_cast<const unsigned char*>(valid), n, win, iters,
-                    eps2, min_eigen, gate_finest, include_valid,
+                    static_cast<const unsigned char*>(valid), n, lanes, win,
+                    iters, eps2, min_eigen, gate_finest, include_valid,
                     static_cast<float*>(g_out),
                     static_cast<unsigned char*>(ok_out),
                     static_cast<float*>(eig_out),
@@ -608,6 +630,10 @@ extern "C" int klt_track_pyramid(KltLevels levels, int nlev, const void* pts,
 }
 
 extern "C" int klt_max_levels() { return kMaxLevels; }
+
+extern "C" int klt_levels_size() {
+  return static_cast<int>(sizeof(KltLevels));
+}
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

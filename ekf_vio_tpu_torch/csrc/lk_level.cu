@@ -37,6 +37,13 @@
 // iteration the sampling and one block reduction.  chip_smoke.py times
 // the call with and without iterations (PERF.md).
 //
+// Lanes: one launch tracks `lanes` independent sequences ([lanes, h, w]
+// level images, [lanes, n] features; the counterpart of pallas_lk's
+// custom_vmap rule, which folds vmapped lanes into one launch).  Block
+// (x, y) is feature x of lane y and reads lane y's images; its arithmetic
+// does not depend on y, so a lane of a many-lane launch is bitwise equal
+// to a one-lane launch on that lane, and lanes = 1 is the one-lane launch.
+//
 // Design: one block per feature carries it through every level, coarse to
 // fine, in one launch (a loop inside the block takes the place of the
 // host's level loop, and its launches, wrapper calls and glue).
@@ -69,18 +76,22 @@
 
 constexpr int kMaxLevels = 4;
 
-// Level e of a call: its prev and cur images, their size, and 2^-(lo + e),
-// the factor from the caller's level-0 points to this level (multiplying
-// by it is exact, and equals dividing by 2^(lo + e)).  Outside the
-// anonymous namespace: a C entry taking a type of internal linkage gets
-// internal linkage itself.  The kernel indexes it only with compile-time
-// indices, so it stays in the parameter bank.
+// Level e of a call: its prev and cur images (lane 0's), their size,
+// 2^-(lo + e), the factor from the caller's level-0 points to this level
+// (multiplying by it is exact, and equals dividing by 2^(lo + e)), and the
+// elements from one lane's image to the next (h * w for a [lanes, h, w]
+// stack).  The same layout as csrc/klt_level.cu KltLevels and
+// frontend/lk_cuda.py Levels; lk_levels_size() lets the wrapper check it.
+// Outside the anonymous namespace: a C entry taking a type of internal
+// linkage gets internal linkage itself.  The kernel indexes it only with
+// compile-time indices, so it stays in the parameter bank.
 struct LkLevels {
   const float* prev[kMaxLevels];
   const float* cur[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   float inv_scale[kMaxLevels];
+  long long lane_stride[kMaxLevels];
 };
 
 namespace {
@@ -294,7 +305,8 @@ __device__ __forceinline__ void scharr_at(const float* ps, int p, int r,
 
 template <int kTaps>
 __global__ void __launch_bounds__(kThreads)
-    lk_pyramid_kernel(LkLevels lv, int nlev, const float* __restrict__ pts,
+    lk_pyramid_kernel(LkLevels lv, int nlev, int nfeat,
+                      const float* __restrict__ pts,
                       const float* __restrict__ init,
                       const unsigned char* __restrict__ valid, int win,
                       int iters, float eps2, float min_eigen,
@@ -303,7 +315,8 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ eig_out,
                       float* __restrict__ err_out) {
   extern __shared__ __align__(16) float smem[];
-  const int n = blockIdx.x;
+  const int lane = blockIdx.y;
+  const int n = lane * nfeat + blockIdx.x;  // index into [lanes, nfeat]
   const int tid = threadIdx.x;
   const int half = (win - 1) / 2;
   const int p = win + 2 * kMargin + 1;
@@ -321,6 +334,13 @@ __global__ void __launch_bounds__(kThreads)
   const float px = pts[2 * n], py = pts[2 * n + 1];
   float gx = init[2 * n], gy = init[2 * n + 1];
   bool ok = valid[n] != 0;
+  const float* prev_img[kMaxLevels];  // this lane's level images
+  const float* cur_img[kMaxLevels];
+#pragma unroll
+  for (int e = 0; e < kMaxLevels; ++e) {
+    prev_img[e] = lv.prev[e] + lane * lv.lane_stride[e];
+    cur_img[e] = lv.cur[e] + lane * lv.lane_stride[e];
+  }
 
   // the window pixels this thread owns: row ti, column tj; a thread's
   // slots past the window point at pixel (0, 0), which the iterations
@@ -348,7 +368,7 @@ __global__ void __launch_bounds__(kThreads)
       const float pax = anchor_of(qx[e], off), pay = anchor_of(qy[e], off);
       tw[e] = window_at(__fsub_rn(qx[e], pax), __fsub_rn(qy[e], pay), half_f,
                         p);
-      share.fetch(ps + e * pp, lv.prev[e], lv.h[e], lv.w[e],
+      share.fetch(ps + e * pp, prev_img[e], lv.h[e], lv.w[e],
                   index_of(pax, p + lv.w[e]), index_of(pay, p + lv.h[e]));
     }
     if (e == top) {
@@ -356,7 +376,7 @@ __global__ void __launch_bounds__(kThreads)
       gy = __fmul_rn(gy, lv.inv_scale[e]);
       cax = anchor_of(gx, off);
       cay = anchor_of(gy, off);
-      share.fetch(cs, lv.cur[e], lv.h[e], lv.w[e],
+      share.fetch(cs, cur_img[e], lv.h[e], lv.w[e],
                   index_of(cax, p + lv.w[e]), index_of(cay, p + lv.h[e]));
     }
   }
@@ -451,7 +471,7 @@ __global__ void __launch_bounds__(kThreads)
       // barrier every thread has passed, so the patch is free to refill
       cax = anchor_of(gx, off);
       cay = anchor_of(gy, off);
-      share.fetch(cs, lv.cur[e], h, w, index_of(cax, p + w),
+      share.fetch(cs, cur_img[e], h, w, index_of(cax, p + w),
                   index_of(cay, p + h));
       share.wait();
       share.round(cs);
@@ -526,7 +546,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int kTaps>
 cudaError_t launch(const LkLevels& lv, int nlev, const float* pts,
                    const float* init, const unsigned char* valid, int n,
-                   int win, int iters, float eps2, float min_eigen,
+                   int lanes, int win, int iters, float eps2, float min_eigen,
                    int gate_finest, float* g_out, unsigned char* ok_out,
                    float* eig_out, float* err_out, cudaStream_t stream) {
   const int p = win + 2 * kMargin + 1;
@@ -539,26 +559,29 @@ cudaError_t launch(const LkLevels& lv, int nlev, const float* pts,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<n, kThreads, smem, stream>>>(lv, nlev, pts, init, valid, win,
-                                        iters, eps2, min_eigen, gate_finest,
-                                        g_out, ok_out, eig_out, err_out);
+  kernel<<<dim3(n, lanes), kThreads, smem, stream>>>(
+      lv, nlev, n, pts, init, valid, win, iters, eps2, min_eigen,
+      gate_finest, g_out, ok_out, eig_out, err_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// `levels` holds nlev (1..kMaxLevels) consecutive levels, finest first;
-// pts and init are [n, 2] in the units that levels.inv_scale scales.
+// `levels` holds nlev (1..kMaxLevels) consecutive levels, finest first,
+// each a stack of `lanes` images levels.lane_stride elements apart; pts
+// and init are [lanes, n, 2] in the units that levels.inv_scale scales,
+// valid and the outputs [lanes, n] (g_out [lanes, n, 2]).
 // Window pixels per thread: ceil(win^2 / 256), at most 4, so win <= 32.
 // Returns a CUDA error code, or cudaErrorInvalidValue for arguments
 // outside that envelope.
 extern "C" int lk_track_pyramid(LkLevels levels, int nlev, const void* pts,
                                 const void* init, const void* valid, int n,
-                                int win, int iters, float eps2,
+                                int lanes, int win, int iters, float eps2,
                                 float min_eigen, int gate_finest, void* g_out,
                                 void* ok_out, void* eig_out, void* err_out,
                                 int device, void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || win < 1 || win > 32)
+  if (nlev < 1 || nlev > kMaxLevels || win < 1 || win > 32 || lanes < 1 ||
+      lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -567,8 +590,9 @@ extern "C" int lk_track_pyramid(LkLevels levels, int nlev, const void* pts,
   auto args = [&](auto launcher) {
     return launcher(levels, nlev, static_cast<const float*>(pts),
                     static_cast<const float*>(init),
-                    static_cast<const unsigned char*>(valid), n, win, iters,
-                    eps2, min_eigen, gate_finest, static_cast<float*>(g_out),
+                    static_cast<const unsigned char*>(valid), n, lanes, win,
+                    iters, eps2, min_eigen, gate_finest,
+                    static_cast<float*>(g_out),
                     static_cast<unsigned char*>(ok_out),
                     static_cast<float*>(eig_out),
                     static_cast<float*>(err_out),
@@ -581,6 +605,8 @@ extern "C" int lk_track_pyramid(LkLevels levels, int nlev, const void* pts,
 }
 
 extern "C" int lk_max_levels() { return kMaxLevels; }
+
+extern "C" int lk_levels_size() { return static_cast<int>(sizeof(LkLevels)); }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -34,6 +34,7 @@ from ekf_vio_tpu_torch.core import depth_init
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.core import imu as imu_mod
 from ekf_vio_tpu_torch.core import lie, sqrt_filter, vi_init
+from ekf_vio_tpu_torch.core.state import register_dataclass_pytree
 from ekf_vio_tpu_torch.core.update import (innovation_nis,
                                            innovation_nis_per_feature)
 from ekf_vio_tpu_torch.frontend import camera as cam_mod
@@ -47,6 +48,9 @@ class EngineState:
     prev_pyr: tuple           # pyramid of the previous processed frame
     frame_idx: torch.Tensor   # int32 — frames processed so far
     lin_base: torch.Tensor    # [22] base state as predicted at this frame
+
+
+register_dataclass_pytree(EngineState)
 
 
 class StepOutputs(NamedTuple):

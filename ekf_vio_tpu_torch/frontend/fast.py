@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ekf_vio_tpu_torch.frontend.lanes import per_lane
+
 # Bresenham circle of radius 3, clockwise from 12 o'clock, as (dy, dx).
 CIRCLE = (
     (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
@@ -79,7 +81,10 @@ def mask_before_nms(h: int, w: int) -> bool:
 
 def detect(img: torch.Tensor, threshold: float) -> torch.Tensor:
     """Full-frame FAST-9 score map, NMS'd, with the 3-px margin zeroed
-    before NMS from ``MASK_BEFORE_NMS_PIXELS`` up and after it below."""
+    before NMS from ``MASK_BEFORE_NMS_PIXELS`` up and after it below.  A
+    [B, H, W] stack runs frame by frame."""
+    if img.dim() == 3:
+        return per_lane(detect, img, threshold)
     score = fast_score_map(img, threshold)
     if mask_before_nms(*img.shape):
         return non_max_suppress(border_mask(score))

@@ -33,6 +33,7 @@ import torch
 
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.frontend import klt_cuda, lk_cuda
+from ekf_vio_tpu_torch.frontend.lanes import per_lane
 
 _SEARCH_MARGIN = 5  # px of in-patch search range per level beyond the seed
 _SMOOTH = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)  # Scharr smoothing
@@ -183,7 +184,13 @@ def track_pyramid_plain(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
     init_pts / 2**hi and each finer level as twice the coarser result,
     and ``valid`` of a level is the status of the coarser one.  Returns
     level lo's (g [N,2] in its px, ok [N] bool, min_eig [N], err [N]),
-    with the min-eigenvalue gate at level 0."""
+    with the min-eigenvalue gate at level 0.  Lane-shaped inputs ([B, H,
+    W] levels, [B, N, 2] points) run lane by lane."""
+    kw = dict(lo=lo, hi=hi, win=win, iters=iters, eps=eps,
+              min_eigen=min_eigen)
+    if prev_pts.dim() == 3:
+        return per_lane(track_pyramid_plain, prev_pyr, cur_pyr, prev_pts,
+                        init_pts, valid, **kw)
     g = init_pts / float(2 ** hi)
     ok = valid
     for lvl in range(hi, lo - 1, -1):
@@ -294,7 +301,12 @@ def track_pyramid_klt_plain(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
     ``valid`` of a level is ``valid`` and the ok of every coarser one;
     the min-eigenvalue gate holds at level 0 only (min_eigen = -1
     elsewhere).  Returns level lo's (g [N,2] in its px, ok [N] bool
-    including ``valid``, min_eig [N], err [N])."""
+    including ``valid``, min_eig [N], err [N]).  Lane-shaped inputs run
+    lane by lane."""
+    if prev_pts.dim() == 3:
+        return per_lane(track_pyramid_klt_plain, prev_pyr, cur_pyr,
+                        prev_pts, init_pts, valid, lo=lo, hi=hi, win=win,
+                        iters=iters, eps=eps, min_eigen=min_eigen)
     g = init_pts / float(2 ** hi)
     ok = valid
     for lvl in range(hi, lo - 1, -1):

@@ -9,6 +9,15 @@ kernel for CUDA tensors and runs the plain twin
 ``track_level_cuda`` is the same kernel on one level.  Any N and any
 window up to 32 px are taken; the JAX kernel's ``N % 32 == 0`` and
 ``win == 21`` limits do not apply.
+
+Lanes: every tensor may carry a leading lane axis (levels [B, H, W],
+points [B, N, 2], valid [B, N]), and B independent sequences are then one
+launch, each lane bitwise equal to a one-lane launch on it.
+``track_pyramid`` goes through the custom operator
+``ekf_vio_tpu_torch::lk_track_pyramid``, whose vmap rule folds the lanes
+of ``torch.func.vmap`` into that one launch (the counterpart of
+``pallas_lk.track``'s ``custom_vmap`` rule); a ctypes launch needs real
+tensors, which a vmapped tensor is not.
 """
 from __future__ import annotations
 
@@ -16,8 +25,11 @@ import ctypes
 import functools
 
 import torch
+from torch import Tensor
 
 from ekf_vio_tpu_torch import cuda_lib
+from ekf_vio_tpu_torch.frontend.lanes import (call_with_lanes, fold_lanes,
+                                              unfold_lanes)
 
 SOURCE = "ekf_vio_tpu_torch/csrc/lk_level.cu"
 # the fused kernel replaces _prep_kernel (:200) and _iter_kernel (:326)
@@ -32,12 +44,13 @@ launches = 0
 class Levels(ctypes.Structure):
     """csrc/lk_level.cu ``LkLevels`` and csrc/klt_level.cu ``KltLevels``
     (the same layout), passed by value: the levels of one call, finest
-    first."""
+    first, each a [H, W] image or a [B, H, W] stack of lanes."""
     _fields_ = [("prev", ctypes.c_void_p * MAX_LEVELS),
                 ("cur", ctypes.c_void_p * MAX_LEVELS),
                 ("h", ctypes.c_int * MAX_LEVELS),
                 ("w", ctypes.c_int * MAX_LEVELS),
-                ("inv_scale", ctypes.c_float * MAX_LEVELS)]
+                ("inv_scale", ctypes.c_float * MAX_LEVELS),
+                ("lane_stride", ctypes.c_longlong * MAX_LEVELS)]
 
     @classmethod
     def of(cls, prevs, curs, inv_scales) -> "Levels":
@@ -46,21 +59,31 @@ class Levels(ctypes.Structure):
         lv = cls()
         for e, (p, c, s) in enumerate(zip(prevs, curs, inv_scales)):
             lv.prev[e], lv.cur[e] = p.data_ptr(), c.data_ptr()
-            lv.h[e], lv.w[e] = p.shape
+            lv.h[e], lv.w[e] = p.shape[-2:]
             lv.inv_scale[e] = s
+            lv.lane_stride[e] = p.shape[-2] * p.shape[-1]
         return lv
+
+
+def check_layout(lib, prefix: str) -> None:
+    """Raise unless the library's ``<prefix>_max_levels()`` and
+    ``<prefix>_levels_size()`` agree with ``Levels``."""
+    if getattr(lib, f"{prefix}_max_levels")() != MAX_LEVELS:
+        raise RuntimeError(f"{prefix}_level.cu and the wrapper disagree on "
+                           f"the number of levels")
+    if getattr(lib, f"{prefix}_levels_size")() != ctypes.sizeof(Levels):
+        raise RuntimeError(f"{prefix}_level.cu and lk_cuda.Levels disagree "
+                           f"on the layout of the levels struct")
 
 
 @functools.cache
 def _lib():
     lib = cuda_lib.load("lk_level")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_track_pyramid.argtypes = [Levels, ci, vp, vp, vp, ci, ci, ci, cf,
-                                     cf, ci, vp, vp, vp, vp, ci, vp]
+    lib.lk_track_pyramid.argtypes = [Levels, ci, vp, vp, vp, ci, ci, ci, ci,
+                                     cf, cf, ci, vp, vp, vp, vp, ci, vp]
     lib.lk_track_pyramid.restype = ctypes.c_int
-    if lib.lk_max_levels() != MAX_LEVELS:
-        raise RuntimeError("lk_level.cu and lk_cuda.py disagree on the "
-                           "number of levels")
+    check_layout(lib, "lk")
     return lib
 
 
@@ -74,28 +97,34 @@ def _check(name, t, dtype, dev) -> None:
 
 
 def _check_points(q, g, valid) -> None:
-    n = q.shape[0]
-    if q.shape != (n, 2) or g.shape != (n, 2) or valid.shape != (n,):
-        raise ValueError(f"expected q, g [N, 2] and valid [N], got "
-                         f"{tuple(q.shape)}, {tuple(g.shape)}, "
-                         f"{tuple(valid.shape)}")
+    lanes = tuple(q.shape[:-2])  # () or (B,)
+    n = q.shape[-2] if q.dim() >= 2 else -1
+    if (len(lanes) > 1 or q.shape != (*lanes, n, 2)
+            or g.shape != (*lanes, n, 2) or valid.shape != (*lanes, n)):
+        raise ValueError(f"expected q, g [N, 2] and valid [N] (or [B, N, 2]"
+                         f" and [B, N]), got {tuple(q.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(valid.shape)}")
     for name, t, dtype in (("q", q, torch.float32), ("g", g, torch.float32),
                            ("valid", valid, torch.bool)):
         _check(name, t, dtype, q.device)
 
 
-def _check_level(prev, cur, dev) -> None:
-    _check("prev", prev, torch.float32, dev)
-    _check("cur", cur, torch.float32, dev)
-    if prev.dim() != 2 or prev.shape != cur.shape:
-        raise ValueError(f"level images must be [H, W] and equal: "
-                         f"{tuple(prev.shape)} vs {tuple(cur.shape)}")
+def _check_level(prev, cur, q) -> None:
+    _check("prev", prev, torch.float32, q.device)
+    _check("cur", cur, torch.float32, q.device)
+    if prev.dim() != q.dim() or prev.shape != cur.shape:
+        raise ValueError(f"level images must be [H, W] (with points [N, 2])"
+                         f" or [B, H, W] (with points [B, N, 2]) and equal:"
+                         f" {tuple(prev.shape)} vs {tuple(cur.shape)}")
+    if prev.shape[:-2] != q.shape[:-2]:
+        raise ValueError(f"{prev.shape[0]} lanes of images, "
+                         f"{q.shape[0]} of points")
 
 
 def check_inputs(prev, cur, q, g, valid) -> None:
     """Raise on what the LK kernels do not take for one level."""
     _check_points(q, g, valid)
-    _check_level(prev, cur, q.device)
+    _check_level(prev, cur, q)
 
 
 def check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo: int,
@@ -111,7 +140,7 @@ def check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo: int,
                          f"takes at most {MAX_LEVELS}")
     _check_points(prev_pts, init_pts, valid)
     for lvl in range(lo, hi + 1):
-        _check_level(prev_pyr[lvl], cur_pyr[lvl], prev_pts.device)
+        _check_level(prev_pyr[lvl], cur_pyr[lvl], prev_pts)
 
 
 def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
@@ -120,26 +149,28 @@ def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
     global launches
     if not 1 <= win <= MAX_WINDOW:
         raise ValueError(f"window {win} outside 1..{MAX_WINDOW}")
-    n = pts.shape[0]
+    n, lanes = pts.shape[-2], (pts.shape[0] if pts.dim() == 3 else 1)
     dev = pts.device
     g_out = torch.empty_like(pts)
     ok = torch.empty_like(valid)
-    stats = torch.empty(2, n, dtype=torch.float32, device=dev)
+    eig = torch.empty(valid.shape, dtype=torch.float32, device=dev)
+    err = torch.empty_like(eig)
     lib = _lib()
     rc = lib.lk_track_pyramid(
         Levels.of(prevs, curs, inv_scales), len(prevs), pts.data_ptr(),
-        init.data_ptr(), valid.data_ptr(), n, win, iters, float(eps) ** 2,
-        float(min_eigen), int(gate_finest), g_out.data_ptr(), ok.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), dev.index,
+        init.data_ptr(), valid.data_ptr(), n, lanes, win, iters,
+        float(eps) ** 2, float(min_eigen), int(gate_finest), g_out.data_ptr(),
+        ok.data_ptr(), eig.data_ptr(), err.data_ptr(), dev.index,
         cuda_lib.stream_ptr(pts))
     cuda_lib.check(lib, rc, "lk_track_pyramid")
     launches += 1
-    return g_out, ok, stats[0], stats[1]
+    return g_out, ok, eig, err
 
 
 def track_level_cuda(prev, cur, q, g, valid, *, win: int, iters: int,
                      eps: float, min_eigen: float, gate_eig: bool):
-    """One level through the kernel.  q, g: [N, 2] in this level's px.
+    """One level through the kernel.  q, g: [N, 2] (or [B, N, 2] with
+    [B, H, W] images) in this level's px.
     Returns (g [N,2], ok [N] bool, min_eig [N], err [N]); ok already
     includes ``valid``."""
     if not prev.is_cuda:
@@ -152,7 +183,8 @@ def track_level_cuda(prev, cur, q, g, valid, *, win: int, iters: int,
 def track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
                        lo: int, hi: int, win: int, iters: int, eps: float,
                        min_eigen: float):
-    """Levels hi down to lo in one launch; see ``track_pyramid``."""
+    """Levels hi down to lo in one launch, every lane of lane-shaped
+    inputs included; see ``track_pyramid``."""
     if not prev_pts.is_cuda:
         raise ValueError("track_pyramid_cuda needs CUDA tensors")
     check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi)
@@ -164,23 +196,48 @@ def track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts, valid, *,
                    gate_finest=lo == 0)
 
 
+@torch.library.custom_op("ekf_vio_tpu_torch::lk_track_pyramid",
+                         mutates_args=())
+def _lk_op(prev_pyr: list[Tensor], cur_pyr: list[Tensor], prev_pts: Tensor,
+           init_pts: Tensor, valid: Tensor, lo: int, hi: int, win: int,
+           iters: int, eps: float, min_eigen: float
+           ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Lane-shaped ``track_pyramid``: levels [B, H, W], points [B, N, 2],
+    valid [B, N]; the kernel for CUDA tensors."""
+    return track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts, valid,
+                              lo=lo, hi=hi, win=win, iters=iters, eps=eps,
+                              min_eigen=min_eigen)
+
+
+@_lk_op.register_kernel("cpu")
+def _lk_op_cpu(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi, win,
+               iters, eps, min_eigen):
+    check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi)
+    from ekf_vio_tpu_torch.frontend import klt
+
+    return klt.track_pyramid_plain(prev_pyr, cur_pyr, prev_pts, init_pts,
+                                   valid, lo=lo, hi=hi, win=win, iters=iters,
+                                   eps=eps, min_eigen=min_eigen)
+
+
+@_lk_op.register_vmap
+def _lk_op_vmap(info, in_dims, *args):
+    return unfold_lanes(info,
+                              _lk_op(*fold_lanes(info, in_dims, *args)))
+
+
 def track_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, cfg, lo: int,
                   hi: int):
     """LK over levels hi down to lo, as ``klt.track``'s level loop runs
     them: the kernel on CUDA tensors, the plain twin on CPU tensors.
 
     prev_pts, init_pts: [N, 2] level-0 px (the guess enters level hi as
-    init_pts / 2**hi); valid: [N] bool.  Returns level lo's (g [N,2] in
-    its px, ok [N] bool, min_eig [N], err [N]); ok chains ``valid``
-    through every level, with the min-eigenvalue gate at level 0."""
-    kw = dict(lo=lo, hi=hi, win=cfg.klt_window_size,
-              iters=cfg.klt_iterations, eps=cfg.klt_eps,
-              min_eigen=cfg.klt_min_eigen)
-    if prev_pts.is_cuda:
-        return track_pyramid_cuda(prev_pyr, cur_pyr, prev_pts, init_pts,
-                                  valid, **kw)
-    check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi)
-    from ekf_vio_tpu_torch.frontend import klt
-
-    return klt.track_pyramid_plain(prev_pyr, cur_pyr, prev_pts, init_pts,
-                                   valid, **kw)
+    init_pts / 2**hi); valid: [N] bool; or, with [B, H, W] levels, [B, N,
+    2] and [B, N], all lanes in one launch.  Returns level lo's (g [N,2]
+    in its px, ok [N] bool, min_eig [N], err [N]), lane-shaped for lanes;
+    ok chains ``valid`` through every level, with the min-eigenvalue gate
+    at level 0."""
+    return call_with_lanes(
+        _lk_op, prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo, hi,
+        cfg.klt_window_size, cfg.klt_iterations, float(cfg.klt_eps),
+        float(cfg.klt_min_eigen))

@@ -1,10 +1,11 @@
 """Rendered end-to-end VIO sequence: images + IMU + ground truth, numpy.
 
-A copy of the numpy part of ``ekf_vio_tpu/sim/rendered.py`` (whose
-``evaluate_ate`` imports JAX): a textured plane (or two) under a smooth
-6-DoF camera trajectory, rendered by inverse warping with bilinear
-sampling, and the matching IMU stream generated analytically with noise
-and constant biases.  Same arguments, same seed, same sequence.
+A copy of the numpy part of ``ekf_vio_tpu/sim/rendered.py``: a textured
+plane (or two) under a smooth 6-DoF camera trajectory, rendered by
+inverse warping with bilinear sampling, and the matching IMU stream
+generated analytically with noise and constant biases.  Same arguments,
+same seed, same sequence.  ``evaluate_ate`` runs the port's engine on
+such a sequence.
 """
 from __future__ import annotations
 
@@ -286,3 +287,33 @@ def _mat_to_quat(R):
     y = (R[0, 2] - R[2, 0]) / (4 * w)
     z = (R[1, 0] - R[0, 1]) / (4 * w)
     return np.array([w, x, y, z])
+
+
+def evaluate_ate(seq: RenderedSequence, cfg=None, use_imu=True,
+                 device="cuda"):
+    """Run the port's engine on the rendered sequence on ``device``;
+    returns (ate_rmse_m, outputs) with the Umeyama-aligned (scaled) ATE
+    (``rendered.evaluate_ate`` of the JAX package)."""
+    import torch
+
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.config import VIOConfig
+    from ekf_vio_tpu_torch.frontend.camera import Camera
+    from ekf_vio_tpu_torch.io.trajectory import ate_rmse
+
+    cfg = cfg or VIOConfig(max_features=128, min_new_feature_dist=10.0,
+                           fast_threshold=25, triangulate_new_features=True)
+    h, w = seq.frames.shape[1:]
+    cam = Camera.from_K(seq.K, w, h)
+    if use_imu:
+        _, outs = engine.run_sequence_imu(
+            seq.frames, seq.times, seq.imu_dt, seq.imu_gyro, seq.imu_accel,
+            seq.gravity_w, cfg, cam, init_frames=cfg.vi_init_frames,
+            device=device)
+    else:
+        _, outs = engine.run_sequence(seq.frames, seq.times, cfg, cam,
+                                      device=device)
+    outs = type(outs)(*(torch.as_tensor(x).cpu() for x in outs))
+    start = max(cfg.vi_init_frames, 1) if use_imu else 1
+    p_est = outs.base_mu[:, 0:3].numpy()
+    return ate_rmse(seq.times[start:], p_est, seq.times, seq.gt_pos), outs

@@ -1,7 +1,10 @@
 """The PyTorch package's VIOConfig is the JAX package's, field for field."""
 import dataclasses
+import glob
+import os
 
 import pytest
+import yaml
 
 from ekf_vio_tpu import config as jconfig
 from ekf_vio_tpu_torch import config
@@ -43,3 +46,29 @@ def test_from_dict_and_yaml(tmp_path):
     assert (dataclasses.asdict(config.VIOConfig.from_yaml(str(p)))
             == dataclasses.asdict(jconfig.VIOConfig.from_yaml(str(p))))
     assert config.VIOConfig().replace(kill_pad=3).kill_pad == 3
+
+
+PROFILES = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "*.yaml")))
+
+
+@pytest.mark.parametrize("path", PROFILES, ids=os.path.basename)
+def test_every_profile_loads_as_in_jax(path):
+    """The port's one YAML parser (``parse_flat_yaml``) reads each profile
+    in configs/ as ``yaml.safe_load`` does, and ``from_yaml`` gives the
+    JAX package's config."""
+    with open(path) as f:
+        text = f.read()
+    assert config.parse_flat_yaml(text) == (yaml.safe_load(text) or {})
+    assert (dataclasses.asdict(config.VIOConfig.from_yaml(path))
+            == dataclasses.asdict(jconfig.VIOConfig.from_yaml(path)))
+
+
+def test_flat_yaml_scalars_match_safe_load():
+    text = ("# a profile\nuse_imu: true\nsquare_root_form: False\n"
+            "max_features: 64   # slots\nklt_eps: 0.01\nq_bias: 1.0e-3\n"
+            "klt_covariance: 'sample'\njoseph_form: product\n\n")
+    assert config.parse_flat_yaml(text) == yaml.safe_load(text)
+    with pytest.raises(ValueError):
+        config.parse_flat_yaml("a:\n  nested: 1\n")

@@ -267,3 +267,103 @@ class TestKernelsOnCard:
             np.testing.assert_array_equal(got, ref)
         else:
             np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def _bits(t):
+    """float32 as int32 bit patterns (NaN included), for bitwise tests."""
+    t = t.contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _lane_scene(cuda, n_lanes, win_shape=(128, 192)):
+    """Lane-shaped pyramids and points: lane b is tests/test_pallas_lk.py's
+    scene of seed b + 1 shifted by (0.9 (b + 1), -1.1); the last lane's
+    points are NaN and the one before it has every row invalid."""
+    scenes = [_scene(*win_shape, seed=b + 1, shift=(0.9 * (b + 1), -1.1))
+              for b in range(n_lanes)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    prev = t(np.stack([s[0] for s in scenes]))
+    cur = t(np.stack([s[1] for s in scenes]))
+    q = np.stack([s[2] for s in scenes])
+    q[-1] = np.nan
+    valid = np.ones(q.shape[:2], bool)
+    valid[-2] = False
+    return (pyramid.build_pyramid(prev, 2), pyramid.build_pyramid(cur, 2),
+            t(q), t(valid))
+
+
+@pytest.mark.requires_cuda
+class TestLanesOnCard:
+    """One launch over B lanes: each lane bitwise equal to a one-lane
+    launch on it, and within the bars above of the plain twin with
+    lanes."""
+
+    @pytest.mark.parametrize("kernel,win", [("lk", 21), ("klt", 17),
+                                            ("klt", 21)])
+    def test_lanes_equal_single_lane_launches(self, cuda, kernel, win):
+        shape = (128, 192) if kernel == "lk" else (240, 320)
+        pp, cp, q, valid = _lane_scene(cuda, 5, shape)
+        module, plain = ((lk_cuda, klt.track_pyramid_plain) if kernel == "lk"
+                         else (klt_cuda, klt.track_pyramid_klt_plain))
+        kw = dict(lo=0, hi=2, win=win, iters=30, eps=0.01, min_eigen=1e-4)
+        before = module.launches
+        got = module.track_pyramid_cuda(pp, cp, q, q, valid, **kw)
+        assert module.launches == before + 1
+        for b in range(q.shape[0]):
+            one = module.track_pyramid_cuda([x[b] for x in pp],
+                                            [x[b] for x in cp], q[b], q[b],
+                                            valid[b], **kw)
+            for x, y in zip(got, one):
+                assert torch.equal(_bits(x[b]), _bits(y))
+        g, ok, eig, err = (_np(x) for x in got)
+        rg, rok, reig, rerr = (_np(x) for x in plain(pp, cp, q, q, valid,
+                                                     **kw))
+        np.testing.assert_array_equal(ok, rok)
+        np.testing.assert_array_equal(np.isfinite(g), np.isfinite(rg))
+        assert not ok[-2:].any() and ok[:-2].sum() >= 0.6 * ok[:-2].size
+        assert np.abs(g - rg)[ok].max() <= 2e-3
+        np.testing.assert_allclose(err[ok], rerr[ok], atol=1e-2)
+        np.testing.assert_allclose(eig[ok], reig[ok], rtol=1e-3)
+
+    @pytest.mark.parametrize("integer", [True, False])
+    @pytest.mark.parametrize("shape", [(120, 160), (240, 320)])
+    def test_fast_lanes_equal_single_frames(self, cuda, integer, shape):
+        imgs = [blocks(*shape, seed=s) if integer else
+                textured(*shape, seed=s) * 0.5 + blocks(*shape, seed=s) * 0.5
+                for s in range(4)]
+        imgs[-1] = np.full(shape, np.nan, np.float32)  # a NaN lane
+        x = torch.from_numpy(np.stack(imgs)).to(cuda)
+        before = fast_cuda.launches
+        got = fast_cuda.detect_cuda(x, 30.0)
+        assert fast_cuda.launches == before + 1
+        for b in range(4):
+            assert torch.equal(_bits(got[b]),
+                               _bits(fast_cuda.detect_cuda(x[b], 30.0)))
+        ref = _np(fast.detect(x, 30.0))
+        assert (ref[:-1] > 0).sum((1, 2)).min() > 20 and not ref[-1].any()
+        if integer:
+            np.testing.assert_array_equal(_np(got), ref)
+        else:
+            np.testing.assert_allclose(_np(got), ref, atol=1e-4)
+
+    def test_vmapped_track_and_detect_are_one_launch_each(self, cuda):
+        """``torch.func.vmap`` over ``klt.track`` and ``fast_cuda.detect``
+        folds the lanes into one launch of each kernel, with each lane's
+        result that of a one-lane call."""
+        from ekf_vio_tpu_torch.config import VIOConfig
+
+        pp, cp, q, valid = _lane_scene(cuda, 4)
+        cfg = VIOConfig(max_features=32)
+        before = (lk_cuda.launches, fast_cuda.launches)
+        res = torch.func.vmap(
+            lambda a, b, p, v: tuple(klt.track(a, b, p, p, v, cfg)))(
+                pp, cp, q, valid)
+        score = torch.func.vmap(lambda im: fast_cuda.detect(im, 30.0))(pp[0])
+        assert (lk_cuda.launches, fast_cuda.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+        for b in range(4):
+            one = klt.track([x[b] for x in pp], [x[b] for x in cp], q[b],
+                            q[b], valid[b], cfg)
+            for x, y in zip(res, one):
+                assert torch.equal(_bits(x[b]), _bits(y))
+            assert torch.equal(score[b], fast_cuda.detect(pp[0][b], 30.0))
