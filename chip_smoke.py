@@ -92,8 +92,37 @@ caught and nothing falls back to the CPU:
     a 12-frame ASL tree the phase writes; the frame loader's route; native/
     unchanged.
 18. torch.profiler traces of 5 steady-state steps of the vision path, of
-    paths (a), (c) and (d), and of the batched step at B = 16: kernels per
-    step, time per ``vio.*`` layer, the device's busy share.
+    paths (a), (c) and (d), of the batched step at B = 16 and of path
+    (g)'s sharded step: kernels per step, time per ``vio.*`` layer, the
+    device's busy share.
+19. the distributed layer on one card: a NCCL process group of one rank
+    (tcp://127.0.0.1 store, ``multihost.initialize_distributed``) and the
+    (1, 1) ('data', 'state') mesh of ``mesh.make_mesh``.  Path (g):
+    ``sharded_engine.run_sequence`` at path (c)'s configuration (512
+    slots, D = 1558) over 60 bench frames (one warm-up, best of 2):
+    bench.py's asserts, Σ checks on the merged state, 'cuda_lk', lk_level
+    = T-1 and fast9 = T launches, a 10-frame sharded rollout equal to the
+    dense ``run_sequence`` in every count (base_mu within 5e-3), and the
+    same 10 frames with two-view depths, whose back-track makes lk_level
+    = 2(T-1) on both engines.
+20. path (h): ``sharded_engine.run_sequence_imu`` at path (a)'s
+    configuration over 40 rendered frames, VI initialization included:
+    'cuda_lk', lk_level = T-1 and fast9 = T-9 launches, ATE under 0.01 m,
+    mean_nis 0 on every frame.
+21. BASELINE.json config 5: ``sharded_predict`` + ``sharded_update`` at
+    256 slots (every 4th unmeasured) against the dense pair, both timed
+    with CUDA events; the collectives of a profiler trace
+    (``evidence.collective_inventory``) and ``evidence.memory_analysis``.
+22. path (j): the mesh step of ``batched.make_batched_filter_step(cfg,
+    mesh)`` on 4 lanes against the mesh-less step, the ms a step of
+    ``scaling_efficiency_probe``, and ``run_sequences_sharded`` over 4
+    lanes of 30 frames equal to ``run_sequences_batched`` in every count.
+23. two ranks on the one card: two processes (``chip_smoke.py
+    --two-ranks``) on a gloo group with CUDA tensors (NCCL puts no two
+    ranks on one GPU), mesh (1, 2): one sharded engine step and one
+    sharded update, merged, against ns = 1 at f32 roundoff; the update
+    of the ns = 2 stepped state on both sides, with the base_mu gap that
+    the step's roundoff leaves after each kind of update.
 Every path runs with every launch count set to 0 just before it and read
 just after.  The JSON line before the card line lists each kernel with
 its launches on those runs (per path under ``launches_by_path``), its
@@ -1603,6 +1632,528 @@ def phase_cli_io(card: str) -> None:
     print(f"[io] native/ unchanged ({card})")
 
 
+# --------------------------------------------------------------------------
+# The distributed layer: parallel/mesh, sharded_filter, sharded_engine,
+# evidence, the mesh halves of batched / batched_engine
+# --------------------------------------------------------------------------
+
+
+N_SHARDED = 60        # frames of the sharded path (c)
+N_SHARDED_MONO = 40   # rendered frames of the sharded mono-inertial path
+
+
+def phase_dist_init(card: str):
+    """The process group (NCCL, one rank, a tcp://127.0.0.1 store on a
+    free port, through ``multihost.initialize_distributed``) and the
+    (1, 1) mesh on the card."""
+    import torch.distributed as dist
+
+    from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
+    from ekf_vio_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    info = multihost.initialize_distributed()
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    mesh = mesh_mod.make_mesh(1, 1)
+    if mesh.device_type != "cuda":
+        raise AssertionError(f"mesh on {mesh.device_type}")
+    print(f"[dist] {info}, backend nccl, mesh {tuple(mesh.mesh.shape)} "
+          f"('data', 'state') on {card}: {time.perf_counter() - t0:.2f} s")
+    return mesh
+
+
+def _sharded_check_sigma(tag, es, mesh) -> None:
+    from ekf_vio_tpu_torch.core import filter as ekf
+    from ekf_vio_tpu_torch.parallel import sharded_filter as sf
+
+    filt = sf.merge_state(es.filt, mesh)
+    if not torch.isfinite(filt.Sigma).all():
+        raise AssertionError(f"[{tag}] non-finite Sigma")
+    min_diag, asym = (float(x) for x in ekf.check_sigma(filt))
+    print(f"[{tag}] merged Sigma: min diag {min_diag:.3e}, asymmetry "
+          f"{asym:.3e}")
+    if not (min_diag >= -1e-5 and asym < 1e-3):
+        raise AssertionError(f"[{tag}] check_sigma: min diag {min_diag}, "
+                             f"asymmetry {asym}")
+
+
+def _same_rollout(tag, sharded, dense) -> None:
+    """Every tracked / active count equal, base_mu within the rollout
+    drift bar of tests/test_torch_engine.py (5e-3)."""
+    same_t = torch.equal(sharded.num_tracked, dense.num_tracked)
+    same_a = torch.equal(sharded.num_active, dense.num_active)
+    dmu = (sharded.base_mu - dense.base_mu).abs().max().item()
+    print(f"[{tag}] sharded vs dense rollout: num_tracked equal {same_t}, "
+          f"num_active equal {same_a}, max|dbase_mu| {dmu:.3e}")
+    if not (same_t and same_a and dmu < 5e-3):
+        raise AssertionError(f"[{tag}] sharded and dense rollouts differ")
+
+
+def phase_sharded_fwi(frames_dev, times_dev, card: str, mesh,
+                      dense_fps: float) -> dict:
+    """Path (g): ``sharded_engine.run_sequence`` at path (c)'s
+    configuration (fast_with_insight, 512 slots, D = 1558) on the (1, 1)
+    NCCL mesh over 60 frames (one warm-up, best of 2): bench.py's asserts
+    (finite state, more than 10 tracks from frame 5 on, more than 250 on
+    average from frame 10), Σ checks on the merged state, 'cuda_lk',
+    lk_level = T-1 and fast9 = T launches; a 10-frame sharded rollout
+    against the dense ``run_sequence`` on the card; and the same 10
+    frames with two-view depths (vision mode), whose back-track is a
+    second lk_level launch a frame: lk_level = 2(T-1) on both engines."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.frontend import camera, klt
+    from ekf_vio_tpu_torch.parallel import sharded_engine as se
+
+    cfg = _fwi_cfg()
+    s = cfg.inverse_image_scale
+    cam = _cam(s)
+    small = camera.downscale_image(frames_dev[:N_SHARDED], s).contiguous()
+    times = times_dev[:N_SHARDED]
+    n = small.shape[0]
+    backend = klt.selected_backend(small.shape[1:], cfg.max_features, cfg,
+                                   small.device)
+    if backend != "cuda_lk":
+        raise AssertionError(f"tracker backend: {backend}")
+    want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
+    best = float("inf")
+    for rep in range(3):  # one warm-up, then best of 2
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, outs = se.run_sequence(small, times, cfg, cam, mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"[path g] launch counts {counts}, "
+                                 f"expected {want}")
+        if rep:
+            best = min(best, dt)
+    tracked = outs.num_tracked.cpu().numpy()
+    if not torch.isfinite(outs.base_mu).all():
+        raise AssertionError("[path g] non-finite base state")
+    if tracked[5:].min() <= 10 or not tracked[10:].mean() > 250:
+        raise AssertionError(f"[path g] tracking: {tracked.tolist()}")
+    _sharded_check_sigma("path g", es, mesh)
+    fps = (n - 1) / best
+    print(f"[path g] sharded_engine.run_sequence, {n} bench frames "
+          f"{small.shape[2]}x{small.shape[1]}, {cfg.max_features} slots "
+          f"(D = {cfg.state_dim}), mesh (1, 1) NCCL, backend {backend}: "
+          f"{fps:.1f} frames/s (best of 2: {best * 1e3:.1f} ms) against "
+          f"dense path (c) {dense_fps:.1f} frames/s in this call, on {card}; "
+          f"tracked mean from frame 10 {tracked[10:].mean():.1f}, min "
+          f"{tracked[10:].min()}; launches {counts}")
+
+    k = 10
+    _, sh = se.run_sequence(small[:k], times[:k], cfg, cam, mesh)
+    _, de = engine.run_sequence(small[:k], times[:k], cfg, cam)
+    _same_rollout("path g", sh, de)
+
+    tcfg = cfg.replace(triangulate_new_features=True)
+    want_t = {"lk_level": 2 * (k - 1), "fast9": k, "klt_level": 0}
+    _reset_counts()
+    _, sh = se.run_sequence(small[:k], times[:k], tcfg, cam, mesh)
+    tri_counts = _counts()
+    _reset_counts()
+    _, de = engine.run_sequence(small[:k], times[:k], tcfg, cam)
+    if not tri_counts == _counts() == want_t:
+        raise AssertionError(f"[path g] two-view depths: launch counts "
+                             f"{tri_counts}, dense {_counts()}, expected "
+                             f"{want_t}")
+    print(f"[path g] {k} frames with two-view depths (the back-track): "
+          f"launches {tri_counts} on the sharded and the dense engine")
+    _same_rollout("path g, two-view depths", sh, de)
+    return {"fps": fps, "launches": counts, "launches_backtrack": tri_counts,
+            "step_ms": 1e3 * best / (n - 1)}
+
+
+def phase_sharded_mono(seq, card: str, mesh) -> dict:
+    """Path (h): ``sharded_engine.run_sequence_imu`` at path (a)'s
+    configuration (128 slots, 21-px window) over the first 40 rendered
+    frames, VI initialization included (one warm-up, one timed run):
+    'cuda_lk', lk_level = T-1 (the VI initialization's chained tracks,
+    then one a frame: in IMU mode the step makes no back-track, as the
+    JAX step) and fast9 = T-9 launches, finite state, more than 10 tracks
+    from 5 frames after the initialization, ATE under 0.01 m, mean_nis 0
+    on every frame (the reference defect)."""
+    from ekf_vio_tpu_torch.frontend import klt
+    from ekf_vio_tpu_torch.io.trajectory import ate_rmse
+    from ekf_vio_tpu_torch.parallel import sharded_engine as se
+
+    cfg = _mono_cfg(21)
+    cam = _mono_cam(seq)
+    k0 = cfg.vi_init_frames
+    n = N_SHARDED_MONO
+    h, w = seq.frames.shape[1:]
+    want = {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 0}
+    from ekf_vio_tpu_torch.parallel.mesh import mesh_device
+
+    dev = mesh_device(mesh)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        seq.frames[:n], seq.times[:n], seq.imu_dt[:n - 1],
+        seq.imu_gyro[:n - 1], seq.imu_accel[:n - 1], seq.gravity_w))
+    backend = klt.selected_backend((h, w), cfg.max_features, cfg, dev)
+    if backend != "cuda_lk":
+        raise AssertionError(f"tracker backend: {backend}")
+    for rep in range(2):  # one warm-up, then one timed run
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, outs = se.run_sequence_imu(*args, cfg, cam, mesh,
+                                       init_frames=k0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"[path h] launch counts {counts}, "
+                                 f"expected {want}")
+    tracked = outs.num_tracked.cpu().numpy()
+    if not torch.isfinite(outs.base_mu).all():
+        raise AssertionError("[path h] non-finite base state")
+    if tracked[5:].min() <= 10:
+        raise AssertionError(f"[path h] lost tracking: {tracked.tolist()}")
+    if not (outs.mean_nis == 0).all():
+        raise AssertionError("[path h] mean_nis is not the reference's 0")
+    _sharded_check_sigma("path h", es, mesh)
+    ate = ate_rmse(seq.times[k0:n], outs.base_mu[:, :3].cpu().numpy(),
+                   seq.times, seq.gt_pos)
+    fps = (n - 1) / dt
+    print(f"[path h] sharded_engine.run_sequence_imu, {n} rendered frames "
+          f"320x240, 128 slots, mesh (1, 1) NCCL, backend {backend}: "
+          f"{fps:.1f} frames/s ({dt * 1e3:.1f} ms, VI init included) on "
+          f"{card}; tracked min {tracked[5:].min()} mean {tracked.mean():.1f}"
+          f"; ATE {ate * 1e3:.2f} mm; mean_nis 0 on every frame; launches "
+          f"{counts}")
+    if not ate < 0.01:
+        raise AssertionError(f"[path h] ATE {ate:.4f} m is not under 0.01 m")
+    return {"fps": fps, "launches": counts, "ate": ate}
+
+
+def phase_config5(card: str, mesh) -> dict:
+    """BASELINE.json config 5 on the card: 256 slots (D = 790), every slot
+    active, every 4th unmeasured (benchmarks/scaling_dryrun.py:50-63);
+    ``sharded_predict`` + ``sharded_update`` on the (1, 1) mesh against
+    the dense predict + update (Σ within 1e-4 absolute, about 4.5 times
+    the 2.2e-5 a sound run showed; the means within 2e-5, the update bar
+    of tests/test_torch_sharded.py), both timed with CUDA events in
+    turns; the c10d
+    collectives of a profiler trace (more than 0) and this rank's Σ
+    bytes."""
+    from ekf_vio_tpu_torch.config import VIOConfig
+    from ekf_vio_tpu_torch.core import filter as ekf
+    from ekf_vio_tpu_torch.parallel import evidence
+    from ekf_vio_tpu_torch.parallel import sharded_filter as sf
+    from ekf_vio_tpu_torch.parallel.mesh import mesh_device
+
+    cfg = VIOConfig(max_features=sf.aligned_feature_capacity(256, 1))
+    n = cfg.max_features
+    dev = mesh_device(mesh)
+    uv = torch.rand(n, 2, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    st = ekf.add_features(ekf.init_state(cfg, device=dev), cfg, uv.to(dev),
+                          torch.ones(n, dtype=torch.bool, device=dev))
+    mc = (torch.eye(2, device=dev) * 1e-5).expand(n, 2, 2)
+    z = st.feat_mu[:, :2] + 0.01
+    passed = torch.arange(n, device=dev) % 4 != 0
+    s0 = sf.split_state(st, mesh)
+
+    def sharded():
+        s = sf.sharded_predict(s0, cfg, 0.05, mesh)
+        return sf.sharded_update(s, cfg, z, mc, passed, mesh)
+
+    def dense():
+        d = ekf.predict(st, cfg, 0.05)
+        return ekf.update_with_feature_positions(d, cfg, z, mc, passed)
+
+    m, d = sf.merge_state(sharded(), mesh), dense()
+    sig_err = (m.Sigma - d.Sigma).abs().max().item()
+    sig_scale = d.Sigma.abs().max().item()
+    mu_err = max((m.base_mu - d.base_mu).abs().max().item(),
+                 (m.feat_mu - d.feat_mu).abs().max().item())
+    times = {k: [] for k in ("sharded", "dense")}
+    for k in ("sharded", "dense", "dense", "sharded"):
+        times[k].append(_wall_ms(sharded if k == "sharded" else dense, 20))
+    ms = {k: sum(v) / 2 for k, v in times.items()}
+    inv = evidence.collective_inventory(sharded)
+    mem = evidence.memory_analysis(s0)
+    print(f"[config 5] {n} slots (D = {cfg.state_dim}), every 4th slot "
+          f"unmeasured: sharded_predict + sharded_update {ms['sharded']:.3f} "
+          f"ms, dense predict + update {ms['dense']:.3f} ms (CUDA events, "
+          f"20 calls, in turns) on {card}; max|dSigma| {sig_err:.3e} "
+          f"(scale {sig_scale:.3e}), max|dmu| {mu_err:.3e}; "
+          f"collectives {inv}; memory {mem}")
+    if not (sig_err < 1e-4 and mu_err < 2e-5):
+        raise AssertionError("[config 5] sharded and dense disagree")
+    if not inv["total"] > 0:
+        raise AssertionError("[config 5] no collective in the trace")
+    return {"ms": ms, "collectives": inv, "memory": mem}
+
+
+def phase_mesh_batching(lanes16, card: str, mesh) -> dict:
+    """Path (j): the mesh step of ``make_batched_filter_step(cfg, mesh)``
+    on 4 lanes at 128 slots against the mesh-less step (mean rtol 1e-5
+    atol 1e-5, Σ rtol 1e-4 atol 5e-5); ``scaling_efficiency_probe``'s ms
+    a step, and the mesh and mesh-less steps timed in turns;
+    ``run_sequences_sharded`` over 4 lanes of 30 bench frames
+    equal to ``run_sequences_batched`` in every count, lk_level = T-1 and
+    fast9 = T launches for all lanes together."""
+    from ekf_vio_tpu_torch.parallel import batched, batched_engine
+    from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = _bench_cfg()
+    dev = mesh_mod.mesh_device(mesh)
+    state = batched.init_batched_state(
+        cfg, 4, generator=torch.Generator().manual_seed(0), device=dev)
+    z = state.feat_mu[:, :, :2] + 0.01
+    meshless = batched.make_batched_filter_step(cfg)
+    ref = meshless(state, z, 0.05)
+    specs = mesh_mod.filter_state_shardings(mesh, True)
+    local = mesh_mod.local_blocks(state, specs, mesh)
+    z_l = mesh_mod.local_blocks(z, ("data", None, None), mesh)
+    mesh_step = batched.make_batched_filter_step(cfg, mesh)
+    got = mesh_mod.gather_blocks(mesh_step(local, z_l, 0.05), specs, mesh)
+    for k, rtol, atol in (("base_mu", 1e-5, 1e-5), ("feat_mu", 1e-5, 1e-5),
+                          ("Sigma", 1e-4, 5e-5)):
+        a, b = getattr(got, k), getattr(ref, k)
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            raise AssertionError(f"[path j] mesh step {k}: max diff "
+                                 f"{(a - b).abs().max().item():.3e}")
+    probe_s = batched.scaling_efficiency_probe(cfg, mesh, 4, steps=10)
+    times = {"mesh": [], "meshless": []}
+    for k in ("mesh", "meshless", "meshless", "mesh"):
+        times[k].append(_wall_ms(
+            (lambda: mesh_step(local, z_l, 0.05)) if k == "mesh"
+            else (lambda: meshless(state, z, 0.05)), 10))
+    step_ms = {k: sum(v) / 2 for k, v in times.items()}
+
+    cam = _cam(cfg.inverse_image_scale)
+    lanes = lanes16[:4, :30].contiguous()
+    n = lanes.shape[1]
+    times = (torch.arange(n, dtype=torch.float32, device=dev)
+             / 20.0).expand(4, -1)
+    want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
+    _reset_counts()
+    es, outs = batched_engine.run_sequences_sharded(lanes, times, cfg, cam,
+                                                    mesh)
+    counts = _counts()
+    if counts != want:
+        raise AssertionError(f"[path j] launch counts {counts}, expected "
+                             f"{want}")
+    _check_lanes("path j", es, outs)
+    _, ref_outs = batched_engine.run_sequences_batched(lanes, times, cfg, cam)
+    if not (torch.equal(outs.num_tracked, ref_outs.num_tracked)
+            and torch.equal(outs.num_active, ref_outs.num_active)):
+        raise AssertionError("[path j] run_sequences_sharded and "
+                             "run_sequences_batched differ")
+    dmu = (outs.base_mu - ref_outs.base_mu).abs().max().item()
+    print(f"[path j] mesh step (4 lanes, 128 slots) equal to the mesh-less "
+          f"step at the bars; scaling_efficiency_probe {probe_s * 1e3:.3f} "
+          f"ms a step on {card}; CUDA events, 10 steps, in turns: mesh step "
+          f"{step_ms['mesh']:.3f} ms, mesh-less {step_ms['meshless']:.3f} "
+          f"ms; run_sequences_sharded 4 lanes x {n} frames "
+          f"equal to run_sequences_batched in every count (max|dbase_mu| "
+          f"{dmu:.3e}); launches {counts}")
+    return {"launches": counts, "probe_ms": probe_s * 1e3,
+            "step_ms": step_ms}
+
+
+def phase_sharded_profile(frames_dev, times_dev, step_ms: float,
+                          mesh) -> None:
+    """torch.profiler over 5 steady-state steps of path (g)."""
+    from ekf_vio_tpu_torch.frontend import camera
+    from ekf_vio_tpu_torch.parallel import sharded_engine as se
+
+    cfg = _fwi_cfg()
+    cam = _cam(cfg.inverse_image_scale)
+    small = camera.downscale_image(frames_dev[:16],
+                                   cfg.inverse_image_scale).contiguous()
+    es = se.initialize(small[0], times_dev[0], cfg, cam, mesh)
+    for i in range(1, 10):
+        es, _ = se.step(es, small[i], times_dev[i], cfg, cam, mesh)
+
+    def run():
+        e = es
+        for i in range(10, 15):
+            e, _ = se.step(e, small[i], times_dev[i], cfg, cam, mesh)
+
+    _profile_steps(run, step_ms, "sharded 512-slot vision step")
+
+
+def _two_rank_step(mesh, dev):
+    """One sharded engine step on bench frames 0 -> 1 at 160x120 (128
+    slots).  Returns (the tracked count, the merged stepped state)."""
+    from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.frontend import camera
+    from ekf_vio_tpu_torch.parallel import sharded_engine as se
+    from ekf_vio_tpu_torch.parallel import sharded_filter as sf
+    from ekf_vio_tpu_torch.sim.frames import make_frames
+
+    engine.use_f32_matmul()
+    cfg = _bench_cfg()
+    cam = _cam(cfg.inverse_image_scale)
+    frames, times = make_frames(seed=0, n_frames=2)
+    small = camera.downscale_image(torch.from_numpy(frames).to(dev),
+                                   4).contiguous()
+    times = torch.from_numpy(times).to(dev)
+    es0 = se.initialize(small[0], times[0], cfg, cam, mesh)
+    es1, out = se.step(es0, small[1], times[1], cfg, cam, mesh)
+    return out.num_tracked, sf.merge_state(es1.filt, mesh)
+
+
+def _two_rank_update(stepped, mesh):
+    """One update of the dense state ``stepped`` (every 3rd slot
+    unmeasured, z = μ_uv + 0.01): sharded on ``mesh``, merged, or the
+    dense ``update_with_feature_positions`` when ``mesh`` is None."""
+    from ekf_vio_tpu_torch.core import filter as ekf
+    from ekf_vio_tpu_torch.parallel import sharded_filter as sf
+
+    cfg = _bench_cfg()
+    n, dev = cfg.max_features, stepped.Sigma.device
+    mc = (torch.eye(2, device=dev) * 1e-5).expand(n, 2, 2)
+    passed = (torch.arange(n, device=dev) % 3 != 0) & stepped.active
+    z = stepped.feat_mu[:, :2] + 0.01
+    if mesh is None:
+        return ekf.update_with_feature_positions(stepped, cfg, z, mc, passed)
+    return sf.merge_state(sf.sharded_update(sf.split_state(stepped, mesh),
+                                            cfg, z, mc, passed, mesh), mesh)
+
+
+def _np_filter(tag: str, filt) -> dict:
+    from ekf_vio_tpu_torch import interop
+
+    return {f"{tag}_{k}": v
+            for k, v in interop.filter_state_to_numpy(filt).items()}
+
+
+def _two_rank_main(rank: int, port: int, workdir: str) -> None:
+    """One of the two gloo ranks on the card (``--two-ranks``): the step,
+    the update of the ns = 1 stepped state and the update of its own."""
+    import torch.distributed as dist
+
+    from ekf_vio_tpu_torch import interop
+    from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    mesh = mesh_mod.make_mesh(1, 2, device="cuda")
+    stepped_ns1 = interop.filter_state_from_numpy(
+        dict(np.load(os.path.join(workdir, "stepped.npz"))), dev)
+    tracked, stepped = _two_rank_step(mesh, dev)
+    res = {"num_tracked": tracked.cpu().numpy(),
+           **_np_filter("step", stepped),
+           **_np_filter("update", _two_rank_update(stepped_ns1, mesh)),
+           **_np_filter("update_own", _two_rank_update(stepped, mesh))}
+    if rank == 0:
+        np.savez(os.path.join(workdir, "two_ranks.npz"), **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_two_ranks(card: str, mesh) -> dict:
+    """Two processes on the one card, gloo (NCCL puts no two ranks on one
+    GPU; gloo carries CUDA tensors for every collective the layer uses),
+    mesh (1, 2): one sharded engine step and one sharded update, merged,
+    against the same on the (1, 1) NCCL mesh of this process: tracked
+    count and active equal, means within 2e-5, Σ within 5e-4 after the
+    step and 5e-5 after the update (the bars of
+    tests/test_torch_sharded.py), the update run on this process's
+    stepped state on both sides.
+
+    Each side's update of its own stepped state differs by more (the
+    update amplifies the step's roundoff).  The witness that this is the
+    inputs' roundoff and not a fault of the ns = 2 update: the ns = 2
+    update of the ns = 2 stepped state equals the ns = 1 update of that
+    same state at the update bars, and the ns = 1 update and the dense
+    update show the same gap between the two stepped states as the
+    ns = 2 update does.  The gaps are printed."""
+    import tempfile
+
+    from ekf_vio_tpu_torch import interop
+    from ekf_vio_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    tracked, stepped = _two_rank_step(mesh, dev)
+    want = {"num_tracked": tracked.cpu().numpy(),
+            **_np_filter("step", stepped),
+            **_np_filter("update", _two_rank_update(stepped, mesh))}
+    port = multihost.free_port()
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "stepped.npz"),
+                 **interop.filter_state_to_numpy(stepped))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--two-ranks",
+             str(r), str(port), workdir], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        errs = []
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            if p.returncode != 0:
+                errs.append(f"rank {r} rc {p.returncode}: {err[-2000:]}")
+        if errs:
+            raise AssertionError("[two ranks] " + "\n".join(errs))
+        got = dict(np.load(os.path.join(workdir, "two_ranks.npz")))
+
+    def bar(k):
+        if k.endswith("_Sigma"):
+            return 5e-4 if k.startswith("step") else 5e-5
+        return 2e-5
+
+    def compare(tag, a, b, keys):
+        worst = {}
+        for k in keys:
+            if k in ("num_tracked",) or k.endswith(("_active", "_age")):
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"[two ranks] {tag} {k} differs")
+                continue
+            worst[k] = float(np.abs(a[k] - b[k]).max())
+            if not worst[k] <= bar(k):
+                raise AssertionError(f"[two ranks] {tag} {k}: max diff "
+                                     f"{worst[k]:.3e} over {bar(k)}")
+        return worst
+
+    fields = ("base_mu", "feat_mu", "active", "Sigma")
+    worst = compare("ns=2 vs ns=1", got, want, ["num_tracked"] + [
+        f"{t}_{k}" for t in ("step", "update") for k in fields])
+    # the witness: the ns = 1 update (and the dense one) of the ns = 2
+    # stepped state
+    stepped_ns2 = interop.filter_state_from_numpy(
+        {k[5:]: v for k, v in got.items() if k.startswith("step_")}, dev)
+    own_ns1 = _np_filter("update", _two_rank_update(stepped_ns2, mesh))
+    own_ns2 = {"update" + k[len("update_own"):]: v for k, v in got.items()
+               if k.startswith("update_own_")}
+    worst_own = compare("own step, ns=2 vs ns=1 update", own_ns2, own_ns1,
+                        [f"update_{k}" for k in fields])
+    dense1 = _two_rank_update(stepped, None)
+    dense2 = _two_rank_update(stepped_ns2, None)
+
+    def gap(a, b):
+        return float(np.abs(a - b).max())
+
+    gaps = {
+        "step_base_mu": worst["step_base_mu"],
+        "step_Sigma": worst["step_Sigma"],
+        "ns2_update": gap(own_ns2["update_base_mu"], want["update_base_mu"]),
+        "ns1_update": gap(own_ns1["update_base_mu"], want["update_base_mu"]),
+        "dense_update": (dense2.base_mu - dense1.base_mu).abs().max().item(),
+    }
+    print(f"[two ranks] 2 gloo processes on {card}, mesh (1, 2), one "
+          f"sharded step (num_tracked {int(got['num_tracked'])}) and one "
+          f"sharded update, merged, against ns = 1 (NCCL): counts and "
+          f"active equal, max diffs {json.dumps(worst)}; each side's "
+          f"update of the ns = 2 stepped state, ns = 2 vs ns = 1: "
+          f"{json.dumps(worst_own)}; base_mu gap between the updates of "
+          f"the ns = 2 and the ns = 1 stepped states, by update: "
+          f"{json.dumps(gaps)}; {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "own": worst_own, "gaps": gaps}
+
+
 def _kernel_entry(name, module, route, launches, err, by_shape) -> dict:
     """The kernel's line: times and bound at 320x240 (the mono-inertial
     slice, every kernel runs there), and every shape timed under
@@ -1672,6 +2223,14 @@ def main() -> int:
     chunks = phase_microbatch(lanes16, card)
     path_f = phase_batched_klt(seqs4, card)
     elapsed("batched paths (e), (f) and the B-curve")
+    mesh = phase_dist_init(card)
+    path_g = phase_sharded_fwi(frames_dev, times_dev, card, mesh,
+                               path_c["fps"])
+    path_h = phase_sharded_mono(seq, card, mesh)
+    config5 = phase_config5(card, mesh)
+    path_j = phase_mesh_batching(lanes16, card, mesh)
+    two_ranks = phase_two_ranks(card, mesh)
+    elapsed("distributed layer (g)-(j)")
     phase_simulator(card)
     phase_cli_io(card)
     elapsed("simulator, CLI and I/O")
@@ -1682,11 +2241,14 @@ def main() -> int:
                   "512-slot vision step")
     phase_mono_profile(seq, path_d["step_ms"], sqrt=True)
     phase_batched_profile(lanes16, curve[16]["step_ms"])
+    phase_sharded_profile(frames_dev, times_dev, path_g["step_ms"], mesh)
 
     runs = {"vision": vision["launches"], "path_a": path_a["launches"],
             "path_b": path_b["launches"], "path_c": path_c["launches"],
             "path_d": path_d["launches"], "path_e": path_e["launches"],
-            "path_f": path_f["launches"]}
+            "path_f": path_f["launches"], "path_g": path_g["launches"],
+            "path_g_two_view": path_g["launches_backtrack"],
+            "path_h": path_h["launches"], "path_j": path_j["launches"]}
     for name in KERNELS:
         if not any(r.get(name, 0) for r in runs.values()):
             raise AssertionError(f"{name} was never launched on a path")
@@ -1706,6 +2268,13 @@ def main() -> int:
                                  for p, r in runs.items()}
     print("[curve] " + json.dumps({"batch_curve": curve,
                                    "one_batch_vs_chunks": chunks}))
+    print("[distributed] " + json.dumps({
+        "path_g_fps": path_g["fps"], "path_c_fps": path_c["fps"],
+        "path_h_fps": path_h["fps"], "path_h_ate_m": path_h["ate"],
+        "config5_ms": config5["ms"], "config5_memory": config5["memory"],
+        "mesh_probe_ms": path_j["probe_ms"],
+        "mesh_step_ms": path_j["step_ms"], "two_ranks": two_ranks}))
+    torch.distributed.destroy_process_group()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1716,4 +2285,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-ranks"]:  # a rank of phase_two_ranks
+        _two_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

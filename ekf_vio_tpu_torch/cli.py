@@ -13,7 +13,8 @@ the plain PyTorch versions of the kernels on the CPU):
     python -m ekf_vio_tpu_torch info
 
 ``--checkpoint`` writes the final filter state with ``io/checkpoint.py``
-(``torch.save``), ``--profile`` a ``torch.profiler`` Chrome trace with
+(``save_npz``: the JAX package's npz layout, which its ``load_npz``
+reads), ``--profile`` a ``torch.profiler`` Chrome trace with
 ``utils/profiling.py``, and ``--insight-dir`` runs ``engine.step`` frame
 by frame and writes annotated PNGs without OpenCV.
 """
@@ -185,9 +186,9 @@ def cmd_run(args) -> int:
         _write_tum(args.out, times[start:], base)
         summary["trajectory"] = args.out
     if args.checkpoint:
-        from ekf_vio_tpu_torch.io.checkpoint import save
+        from ekf_vio_tpu_torch.io.checkpoint import save_npz
 
-        save(args.checkpoint, estate.filt)
+        save_npz(args.checkpoint, estate.filt)
         summary["checkpoint"] = args.checkpoint
     print(json.dumps(summary, indent=2))
     return 0
@@ -312,7 +313,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--insight-dir",
                    help="dump annotated insight PNGs (streaming)")
     r.add_argument("--checkpoint",
-                   help="save the final filter state (torch.save)")
+                   help="save the final filter state (npz, the JAX "
+                        "package's layout)")
     r.add_argument("--profile",
                    help="write a torch.profiler Chrome trace to this dir")
     r.add_argument("--log-every", type=int, default=30,

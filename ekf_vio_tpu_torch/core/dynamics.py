@@ -31,6 +31,14 @@ def convolve_base_state(base_mu: torch.Tensor, dt) -> torch.Tensor:
     return torch.cat([pos, quat, vel, omega, accel_new, base_mu[16:22]])
 
 
+def convolve_feature(base_mu: torch.Tensor, feat_mu: torch.Tensor,
+                     dt) -> torch.Tensor:
+    """Transport one feature [u, v, ρ] into the next camera frame (the
+    per-feature form whose Jacobians ``imu.propagate_imu_step`` takes
+    with ``torch.func.jacfwd``)."""
+    return convolve_features(base_mu, feat_mu[None], dt)[0]
+
+
 def convolve_features(base_mu: torch.Tensor, feat_mu: torch.Tensor,
                       dt) -> torch.Tensor:
     """Transport [N, 3] features [u, v, ρ] into the next camera frame:
@@ -135,6 +143,46 @@ def propagate_covariance(Sigma, Fb, Ffb, Ff, q_diag) -> torch.Tensor:
     keep TF32 off: the spectrum spans 1e-5..1e2 and needs true f32."""
     F = build_dense_F(Fb, Ffb, Ff)
     out = F @ Sigma @ F.T + torch.diag(q_diag)
+    return 0.5 * (out + out.T)
+
+
+def blk_left(B: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """blkdiag(B) @ M for B [m, 3, 3] and M [3m, c]."""
+    m = B.shape[0]
+    return torch.einsum("nij,njc->nic", B, M.reshape(m, 3, -1)).reshape(
+        3 * m, -1)
+
+
+def blk_right(M: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """M @ blkdiag(B)ᵀ for M [r, 3m] and B [m, 3, 3]."""
+    m = B.shape[0]
+    return torch.einsum("rnj,nij->rni", M.reshape(M.shape[0], m, 3),
+                        B).reshape(M.shape[0], -1)
+
+
+def propagate_covariance_blocked(Sigma, Fb, Ffb, Ff, q_diag) -> torch.Tensor:
+    """Σ ← F Σ Fᵀ + Q through the block structure of F = [[Fb, 0], [L, B]]
+    (L = Ffb rows, B = blkdiag(Ff)), with no [D, D] F:
+
+        Σbb' = Fb Σbb Fbᵀ,   Σbf' = Fb (Σbb Lᵀ + Σbf Bᵀ),
+        Σff' = L Σbb Lᵀ + L Σbf Bᵀ + (L Σbf Bᵀ)ᵀ + B Σff Bᵀ,
+
+    the block-diagonal products as [N, 3, 3] einsums.  The single-device
+    form of ``parallel/sharded_filter.sharded_predict``."""
+    nb = BASE_STATE_SIZE
+    n = Ff.shape[0]
+    Sbb, Sbf, Sff = Sigma[:nb, :nb], Sigma[:nb, nb:], Sigma[nb:, nb:]
+    L = Ffb.reshape(3 * n, nb)
+    Sbb_Lt = Sbb @ L.T                                     # [22, 3N]
+    Sbf_Bt = blk_right(Sbf, Ff)                            # [22, 3N]
+    new_bb = Fb @ Sbb @ Fb.T
+    new_bf = Fb @ (Sbb_Lt + Sbf_Bt)
+    L_Sbf_Bt = L @ Sbf_Bt
+    new_ff = (L @ Sbb_Lt + L_Sbf_Bt + L_Sbf_Bt.T
+              + blk_right(blk_left(Ff, Sff), Ff))
+    out = torch.cat([torch.cat([new_bb, new_bf], 1),
+                     torch.cat([new_bf.T, new_ff], 1)], 0)
+    out = out + torch.diag(q_diag)
     return 0.5 * (out + out.T)
 
 

@@ -14,6 +14,11 @@ pairwise tree (``_compose_chain_tree``).  The interval then costs one
 dense Σ ← FΣFᵀ + Q (``propagate_imu_batch_with_motion``).  Callers keep
 TF32 off, as the JAX package pins these paths to f32 matmuls.
 
+``propagate_imu_step`` / ``propagate_imu_batch_steps`` are the
+sequential reference the compound path is held against: one exact
+``torch.func.jacfwd`` F and G per sample and one [D, D] covariance
+product per sample, the samples in a Python loop.
+
 The cumulative quaternion product (``jax.lax.associative_scan`` in the
 JAX package) is a log-depth doubling of batched ``quat_mul``; its
 association order differs, so parity holds at f32 roundoff.  The known
@@ -23,6 +28,7 @@ its exclusive prefixes by subtraction.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -55,6 +61,20 @@ def convolve_base_imu(base_mu, gyro_m, accel_m, dt, gravity_w):
     return dynamics.convolve_base_state(mu2, dt)
 
 
+def _f_with_noise(base_mu, gyro_m, accel_m, noise, dt, gravity_w):
+    """One strapdown step with additive noise inputs (for G = ∂f/∂n):
+    n = [n_g(3), n_a(3), n_bg(3), n_ba(3)], measurement white noise and
+    bias random walks."""
+    n_g, n_a, n_bg, n_ba = noise[0:3], noise[3:6], noise[6:9], noise[9:12]
+    mu = torch.cat([base_mu[:16], base_mu[16:19] + n_ba * dt,
+                    base_mu[19:22] + n_bg * dt])
+    return convolve_base_imu(mu, gyro_m + n_g, accel_m + n_a, dt, gravity_w)
+
+
+_jac_base_imu = jacfwd(convolve_base_imu, argnums=0)
+_jac_noise = jacfwd(_f_with_noise, argnums=3)
+
+
 def imu_noise_psd(cfg: VIOConfig, device=None) -> torch.Tensor:
     """Diagonal continuous-time noise PSD for n = [n_g, n_a, n_bg, n_ba]."""
     return torch.tensor(
@@ -79,6 +99,70 @@ def extend_batch_with_remainder(batch: ImuSample, rem) -> ImuSample:
         dt=torch.cat([batch.dt, rem]),
         gyro=torch.cat([batch.gyro, batch.gyro.index_select(0, pick)]),
         accel=torch.cat([batch.accel, batch.accel.index_select(0, pick)]))
+
+
+def propagate_imu_step(state: FilterState, cfg: VIOConfig, sample: ImuSample,
+                       gravity_w) -> FilterState:
+    """One IMU sample: exact F and G, Σ ← FΣFᵀ + GQGᵀ (+ feature noise).
+
+    Features move with the IMU-substituted kinematics; their Jacobian
+    blocks reach the original state (biases included) through the
+    substitution."""
+    dt = sample.dt
+    dtype, dev = state.Sigma.dtype, state.device
+    mu_sub = substitute_imu_controls(state.base_mu, sample.gyro,
+                                     sample.accel, gravity_w)
+    Fb = _jac_base_imu(state.base_mu, sample.gyro, sample.accel, dt,
+                       gravity_w)
+
+    def feat_transport(b_mu, f_mu):
+        return dynamics.convolve_feature(
+            substitute_imu_controls(b_mu, sample.gyro, sample.accel,
+                                    gravity_w), f_mu, dt)
+
+    Ffb = vmap(jacfwd(feat_transport, argnums=0), in_dims=(None, 0))(
+        state.base_mu, state.feat_mu)                      # [N, 3, 22]
+    Ff = vmap(jacfwd(feat_transport, argnums=1), in_dims=(None, 0))(
+        state.base_mu, state.feat_mu)                      # [N, 3, 3]
+    Ffb, Ff = dynamics.mask_feature_jacobians(Ffb, Ff, state.active)
+
+    G = _jac_noise(state.base_mu, sample.gyro, sample.accel,
+                   torch.zeros(12, dtype=dtype, device=dev), dt, gravity_w)
+    Qn = torch.diag(imu_noise_psd(cfg, dev).to(dtype)
+                    / torch.clamp(dt, min=1e-6))
+    GQG = G @ Qn @ G.T                                     # [22, 22]
+
+    q_feat = torch.where(state.active[:, None], cfg.q_feature, 0.0) \
+        * torch.ones(state.n_max, 3, dtype=dtype, device=dev) * dt
+    q_diag = torch.cat([torch.zeros(BASE_STATE_SIZE, dtype=dtype,
+                                    device=dev), q_feat.reshape(-1)])
+    Sigma = dynamics.propagate_covariance(state.Sigma, Fb, Ffb, Ff, q_diag)
+    nb = BASE_STATE_SIZE
+    Sigma = Sigma + torch.nn.functional.pad(
+        GQG, (0, Sigma.shape[1] - nb, 0, Sigma.shape[0] - nb))
+    Sigma = 0.5 * (Sigma + Sigma.T)
+
+    new_feat = dynamics.convolve_features(mu_sub, state.feat_mu, dt)
+    feat_mu = torch.where(state.active[:, None], new_feat, state.feat_mu)
+    base_mu = dynamics.convolve_base_state(mu_sub, dt)
+    return state.replace(base_mu=base_mu, feat_mu=feat_mu, Sigma=Sigma,
+                         t=state.t + dt)
+
+
+def propagate_imu_batch_steps(state: FilterState, cfg: VIOConfig,
+                              batch: ImuSample, gravity_w) -> FilterState:
+    """The sequential reference: ``propagate_imu_step`` per sample, one
+    [D, D] covariance product each; rows with dt <= 0 keep the state
+    (``torch.where``, no host read)."""
+    for i in range(batch.dt.shape[0]):
+        smp = ImuSample(batch.dt[i], batch.gyro[i], batch.accel[i])
+        s2 = propagate_imu_step(state, cfg, smp, gravity_w)
+        ok = smp.dt > 0
+        state = FilterState(**{
+            f.name: torch.where(ok, getattr(s2, f.name),
+                                getattr(state, f.name))
+            for f in dataclasses.fields(FilterState)})
+    return state
 
 
 # --------------------------------------------------------------------------

@@ -90,8 +90,9 @@ def update_with_feature_positions(
             slots = torch.arange(n, device=dev)
             uv_idx = (BASE_STATE_SIZE + 3 * slots[:, None]
                       + torch.arange(2, device=dev)[None, :]).reshape(-1)
-        I_KH = torch.eye(d, dtype=dtype, device=dev)
-        I_KH[:, uv_idx] -= K
+        # out of place, so the update maps under torch.func.vmap
+        I_KH = torch.eye(d, dtype=dtype, device=dev).index_add(
+            1, uv_idx, K, alpha=-1)
         Sigma = (I_KH @ state.Sigma @ I_KH.T
                  + K @ (block_diag(meas_cov) * mm) @ K.T)
     Sigma = 0.5 * (Sigma + Sigma.T)

@@ -136,13 +136,13 @@ def _rho_vec(vals: torch.Tensor, n: int) -> torch.Tensor:
                       torch.stack([z, z, vals], -1).reshape(-1)])
 
 
-def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
-                     measured_uv, passed, dt, frame_qt) -> ekf.FilterState:
-    """IMU-mode depth bootstrap (engine.py:240-293): young tracked
-    features whose depth, triangulated against the exact IMU baseline
-    ``frame_qt``, disagrees with their estimate get ρ and its variance
-    re-initialized; the ρ row and column of Σ are wiped first (in factor
-    form by one re-triangularization)."""
+def _depth_boot_select(filt, cfg: VIOConfig, cam: Camera, measured_uv,
+                       passed, dt, frame_qt):
+    """The IMU-mode depth bootstrap's choice (engine.py:240-293), on a
+    dense or a split state: young tracked features whose depth,
+    triangulated against the exact IMU baseline ``frame_qt``, disagrees
+    with their estimate.  Returns (boot [N] bool, the new ρ σ [N], ρ [N]
+    with the booted slots re-initialized)."""
     Rt = (lie.quat_to_matrix(frame_qt[0:4]), frame_qt[4:7])
     z_boot, tri_ok, rel_sig = depth_init.triangulate_depths(
         filt.klt_ref, measured_uv, filt.base_mu, dt, cfg.default_point_depth,
@@ -155,7 +155,16 @@ def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
     disagrees = torch.abs(rho_new - rho_old) > sig_tri
     boot = ((filt.age <= cfg.bootstrap_max_age) & tri_ok & good & passed
             & filt.active & disagrees)
-    rho = torch.where(boot, rho_new, rho_old)
+    return boot, sig_tri, torch.where(boot, rho_new, rho_old)
+
+
+def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
+                     measured_uv, passed, dt, frame_qt) -> ekf.FilterState:
+    """IMU-mode depth bootstrap: the booted features (``_depth_boot_select``)
+    get ρ and its variance re-initialized; the ρ row and column of Σ are
+    wiped first (in factor form by one re-triangularization)."""
+    boot, sig_tri, rho = _depth_boot_select(filt, cfg, cam, measured_uv,
+                                            passed, dt, frame_qt)
     n, dtype = filt.n_max, filt.Sigma.dtype
     if cfg.square_root_form:
         Sigma = sqrt_filter.wipe_rows_factor(
@@ -190,11 +199,12 @@ def _measurement_covariance(cfg: VIOConfig, cam: Camera, prev_img, cur_img,
     return cov_px * scale[None]
 
 
-def _two_view_depths(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
-                     prev_pyr, cur_pyr, cand_px, cand_uv, cand_valid, dt):
-    """Vision-only depth init of new candidates (engine.py:351-379): track
-    them back into the previous frame and triangulate against the
-    filter's own frame-to-frame motion.  Returns (depths, depth_vars)."""
+def _two_view_depths(filt, cfg: VIOConfig, cam: Camera, prev_pyr, cur_pyr,
+                     cand_px, cand_uv, cand_valid, dt):
+    """Vision-only depth init of new candidates (engine.py:351-379), on a
+    dense or a split state: track them back into the previous frame and
+    triangulate against the filter's own frame-to-frame motion.  Returns
+    (depths, depth_vars)."""
     back = klt.track(cur_pyr, prev_pyr, cand_px, cand_px, cand_valid, cfg)
     h_prev = cam_mod.pixel_to_metric(cam, back.points)
     z_cur, tri_ok, rel_sig = depth_init.triangulate_depths(
@@ -210,6 +220,72 @@ def _two_view_depths(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
     return depths, depth_vars
 
 
+def _recovered_base(base_mu: torch.Tensor) -> torch.Tensor:
+    """The base state a tracking-lost recovery keeps: non-finite entries
+    reset to the identity pose, the quaternion renormalized."""
+    init_mu = torch.zeros(BASE_STATE_SIZE, dtype=base_mu.dtype,
+                          device=base_mu.device)
+    init_mu[3] = 1.0
+    base = torch.where(torch.isfinite(base_mu), base_mu, init_mu)
+    qn = torch.linalg.vector_norm(base[3:7])
+    q = torch.where(qn > 1e-6, base[3:7] / torch.clamp(qn, min=1e-6),
+                    init_mu[3:7])
+    return torch.cat([base[:3], q, base[7:]])
+
+
+def _recovered_base_variances(diag: torch.Tensor,
+                              cfg: VIOConfig) -> torch.Tensor:
+    """[22] base variances after a recovery, from Σ's diagonal ``diag``:
+    pose and biases kept (non-finite ones reset to their initial value),
+    the kinematic ones re-inflated."""
+    def safe(d, fallback):
+        return torch.clamp(torch.where(torch.isfinite(d), d, fallback), min=0.0)
+
+    return torch.cat([
+        safe(diag[:7], cfg.init_pose_variance),
+        torch.full((9,), cfg.init_kinematic_variance, dtype=diag.dtype,
+                   device=diag.device),
+        safe(diag[16:22], cfg.init_bias_variance),
+    ])
+
+
+def _track_and_gate(prev_pyr, filt, img, cfg: VIOConfig, cam: Camera,
+                    nis_of):
+    """The front end of a step, on a dense or a split state: the new
+    pyramid, KLT seeded at the predicted positions, the kill box, the
+    relative structure gate and the χ² innovation gate (``nis_of``:
+    measured uv [N, 2] -> per-feature NIS [N]).  Returns (cur_pyr, the
+    track result, prev_px, passed, measured_uv)."""
+    with record_function("vio.pyramid"):
+        cur_pyr = pyramid.build_pyramid(img, cfg.klt_max_pyramid_level)
+    with record_function("vio.track"):
+        prev_px = cam_mod.metric_to_pixel(cam, filt.klt_ref)
+        seed_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
+        res = klt.track(prev_pyr, cur_pyr, prev_px, seed_px, filt.active,
+                        cfg)
+        passed = res.status & cam_mod.in_kill_box(cam, res.points,
+                                                  cfg.kill_pad)
+    measured_uv = cam_mod.pixel_to_metric(cam, res.points)
+    if cfg.min_eigen_rel_gate > 0 or cfg.innovation_gate_chi2 > 0:
+        with record_function("vio.gates"):
+            if cfg.min_eigen_rel_gate > 0:
+                passed = passed & _rel_eig_keep(res.min_eig, passed,
+                                                cfg.min_eigen_rel_gate)
+            if cfg.innovation_gate_chi2 > 0:
+                passed = passed & (nis_of(measured_uv)
+                                   <= cfg.innovation_gate_chi2)
+    return cur_pyr, res, prev_px, passed, measured_uv
+
+
+def _replenish_candidates(img, filt, cfg: VIOConfig, cam: Camera):
+    """FAST candidates away from the live features (EKFVIO.cpp:224-311).
+    Returns (cand_px, cand_valid, cand_uv)."""
+    feat_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
+    cand_px, cand_valid = replenish.replenish(img, feat_px, filt.active, cfg,
+                                              cfg.max_features)
+    return cand_px, cand_valid, cam_mod.pixel_to_metric(cam, cand_px)
+
+
 def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
                            lost: torch.Tensor) -> ekf.FilterState:
     """Re-bootstrap when tracking collapses (the action on the flag the
@@ -218,23 +294,9 @@ def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
     variances.  Every field is selected by ``torch.where`` on ``lost``."""
     dtype, dev = filt.Sigma.dtype, filt.device
     n = filt.n_max
-    init_mu = torch.zeros(22, dtype=dtype, device=dev)
-    init_mu[3] = 1.0
-    base = torch.where(torch.isfinite(filt.base_mu), filt.base_mu, init_mu)
-    qn = torch.linalg.vector_norm(base[3:7])
-    q = torch.where(qn > 1e-6, base[3:7] / torch.clamp(qn, min=1e-6),
-                    init_mu[3:7])
-    base = torch.cat([base[:3], q, base[7:]])
-
-    diag = _filter_sigma_diag(filt, cfg)
-
-    def safe(d, fallback):
-        return torch.clamp(torch.where(torch.isfinite(d), d, fallback), min=0.0)
-
+    base = _recovered_base(filt.base_mu)
     sig_diag = torch.cat([
-        safe(diag[:7], cfg.init_pose_variance),
-        torch.full((9,), cfg.init_kinematic_variance, dtype=dtype, device=dev),
-        safe(diag[16:22], cfg.init_bias_variance),
+        _recovered_base_variances(_filter_sigma_diag(filt, cfg), cfg),
         torch.zeros(3 * n, dtype=dtype, device=dev),
     ])
     # diag(σ²) in covariance form; its own Cholesky factor diag(σ) in
@@ -284,30 +346,16 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
     filt = filt.replace(t=t.to(filt.t.dtype))
     new_lin_base = filt.base_mu  # FEJ anchor for the next interval
 
-    # --- track (updateStateWithNewImage, EKFVIO.cpp:207-219)
-    with record_function("vio.pyramid"):
-        cur_pyr = pyramid.build_pyramid(img, cfg.klt_max_pyramid_level)
-    with record_function("vio.track"):
-        prev_px = cam_mod.metric_to_pixel(cam, filt.klt_ref)
-        seed_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
-        res = klt.track(estate.prev_pyr, cur_pyr, prev_px, seed_px,
-                        filt.active, cfg)
-        passed = res.status & cam_mod.in_kill_box(cam, res.points,
-                                                  cfg.kill_pad)
-    measured_uv = cam_mod.pixel_to_metric(cam, res.points)
+    # --- track (updateStateWithNewImage, EKFVIO.cpp:207-219), then the
+    # relative structure gate and the χ² innovation gate (constant R)
+    def nis_of(measured_uv):
+        gate_cov = klt.measurement_covariance_metric(
+            cam.fx, cam.fy, cfg.max_features, cfg, device=dev)
+        return innovation_nis_per_feature(filt, measured_uv, gate_cov,
+                                          factor=sq)
 
-    # --- gates: relative structure gate, χ² innovation gate (constant R)
-    if cfg.min_eigen_rel_gate > 0 or cfg.innovation_gate_chi2 > 0:
-        with record_function("vio.gates"):
-            if cfg.min_eigen_rel_gate > 0:
-                passed = passed & _rel_eig_keep(res.min_eig, passed,
-                                                cfg.min_eigen_rel_gate)
-            if cfg.innovation_gate_chi2 > 0:
-                gate_cov = klt.measurement_covariance_metric(
-                    cam.fx, cam.fy, cfg.max_features, cfg, device=dev)
-                nis_f = innovation_nis_per_feature(filt, measured_uv,
-                                                   gate_cov, factor=sq)
-                passed = passed & (nis_f <= cfg.innovation_gate_chi2)
+    cur_pyr, res, prev_px, passed, measured_uv = _track_and_gate(
+        estate.prev_pyr, filt, img, cfg, cam, nis_of)
 
     if imu_batch is not None and cfg.triangulate_new_features:
         with record_function("vio.depth_boot"):
@@ -338,10 +386,8 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
 
     # --- replenish (EKFVIO.cpp:224-311)
     with record_function("vio.replenish"):
-        feat_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
-        cand_px, cand_valid = replenish.replenish(img, feat_px, filt.active,
-                                                  cfg, cfg.max_features)
-        cand_uv = cam_mod.pixel_to_metric(cam, cand_px)
+        cand_px, cand_valid, cand_uv = _replenish_candidates(img, filt, cfg,
+                                                             cam)
         depths = depth_vars = None
         if cfg.triangulate_new_features and imu_batch is None:
             # IMU mode skips this second tracker call: its depth

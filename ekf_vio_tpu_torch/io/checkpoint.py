@@ -1,11 +1,12 @@
 """Checkpoint / resume of the filter state.
 
-Port of ``ekf_vio_tpu/io/checkpoint.py``.  ``save`` / ``load`` keep the
-``FilterState`` fields with ``torch.save``; they take the place of both
-the JAX package's npz files and its orbax checkpoints (orbax has no
-counterpart here).  ``load_npz`` reads a file the JAX package's
-``save_npz`` wrote (the leaves in ``FilterState`` field order, plus
-``__treedef__``), so a JAX run resumes in the port.
+Port of ``ekf_vio_tpu/io/checkpoint.py``.  ``save_npz`` / ``load_npz``
+write and read the JAX package's npz layout (the leaves ``leaf_0`` ..
+``leaf_6`` in ``FilterState`` field order, plus ``__treedef__``), so a
+state moves between the two packages in either direction; the CLI's
+``--checkpoint`` writes it.  ``save`` / ``load`` keep the fields with
+``torch.save``, the port's own pair; they stand in for the JAX package's
+orbax checkpoints, which have no counterpart here.
 """
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ import torch
 from ekf_vio_tpu_torch.core.state import FilterState
 from ekf_vio_tpu_torch.engine import resolve_device
 from ekf_vio_tpu_torch.interop import FILTER_FIELDS, filter_state_from_numpy
+
+# what the JAX package's save_npz stores as __treedef__: str() of the
+# FilterState's tree structure (its load_npz reads only the leaves)
+_TREEDEF = "PyTreeDef(CustomNode(FilterState[()], [*, *, *, *, *, *, *]))"
 
 
 def save(path: str, state: FilterState) -> None:
@@ -31,8 +36,18 @@ def load(path: str, device="cuda") -> FilterState:
     return FilterState(**{k: d[k].to(dev) for k in FILTER_FIELDS})
 
 
+def save_npz(path: str, state: FilterState) -> None:
+    """The state in the JAX package's npz layout, which its ``load_npz``
+    reads (numpy appends ``.npz`` to a path without it, as there)."""
+    np.savez(
+        path,
+        __treedef__=np.frombuffer(_TREEDEF.encode(), dtype=np.uint8),
+        **{f"leaf_{i}": getattr(state, k).detach().cpu().numpy()
+           for i, k in enumerate(FILTER_FIELDS)})
+
+
 def load_npz(path: str, device="cuda") -> FilterState:
-    """A state the JAX package's ``checkpoint.save_npz`` wrote, on
+    """A state ``save_npz`` or the JAX package's ``save_npz`` wrote, on
     ``device`` (as for ``load``)."""
     dev = resolve_device(device)
     with np.load(path) as z:

@@ -1,19 +1,25 @@
-"""A batch of filters stepped together, without a device mesh.
+"""A batch of filters stepped together, on one device or on a mesh.
 
-Port of ``ekf_vio_tpu/parallel/batched.py``: ``init_batched_state`` and
-``make_batched_filter_step`` over a leading batch axis, mapped with
-``torch.func.vmap``.  The JAX module also constrains Σ to a
-data x state mesh (``make_batched_filter_step(cfg, mesh)``) and times
-that (``scaling_efficiency_probe``); both need the distributed layer and
-come with it.
+Port of ``ekf_vio_tpu/parallel/batched.py`` (BASELINE.json configs 4 and
+5): ``init_batched_state`` and ``make_batched_filter_step`` over a
+leading batch axis, mapped with ``torch.func.vmap``.  With a mesh the
+lanes split over ``data`` and each lane's Σ over ``state`` in the JAX
+layout (``mesh.filter_state_shardings``: Σ[b, :, columns]), so a rank
+stores only its [B/nd, D, D/ns] block; the JAX module leaves the
+collectives to GSPMD, here one all-gather of Σ's columns runs the
+mesh-less step.
+``scaling_efficiency_probe`` times the mesh step.
 """
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.device_mesh import DeviceMesh
+
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.engine import resolve_device
+from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
 
 
 def init_batched_state(cfg: VIOConfig, batch: int,
@@ -38,10 +44,22 @@ def init_batched_state(cfg: VIOConfig, batch: int,
         lambda u: ekf.add_features(base, cfg, u, ones))(uv)
 
 
-def make_batched_filter_step(cfg: VIOConfig):
+def make_batched_filter_step(cfg: VIOConfig, mesh: DeviceMesh | None = None):
     """(batched FilterState, z [B, N, 2], dt) -> FilterState: one predict
     and one masked update (R = 1e-5 I, every active slot measured) per
-    filter of the batch, the compute core of the per-frame pipeline."""
+    filter of the batch, the compute core of the per-frame pipeline.
+
+    With a mesh the step takes and returns this rank's blocks
+    (``mesh.local_blocks`` of the state along
+    ``mesh.filter_state_shardings(mesh)``, and of z along ``data``): a
+    rank stores its [B/nd, D, D/ns] block of Σ.  The step all-gathers Σ's
+    columns over ``state``, runs the mesh-less step on the rank's lanes
+    and keeps its own columns, so every option of ``cfg`` is honoured
+    exactly as without a mesh.  During the step a rank holds its lanes'
+    whole Σ, so its peak memory is O(B/nd · D²), and every rank of a
+    ``state`` group does the same O(B/nd · D³) work: the mesh splits the
+    lanes' compute over ``data`` only.  Needs (22 + 3N) divisible by the
+    ``state`` size (``mesh.aligned_capacity``)."""
     def one_step(state, z, dt):
         state = ekf.predict(state, cfg, dt)
         eye = torch.eye(2, dtype=state.Sigma.dtype, device=state.device)
@@ -49,4 +67,47 @@ def make_batched_filter_step(cfg: VIOConfig):
         return ekf.update_with_feature_positions(state, cfg, z, meas_cov,
                                                  state.active)
 
-    return torch.func.vmap(one_step, in_dims=(0, 0, None))
+    vstep = torch.func.vmap(one_step, in_dims=(0, 0, None))
+    if mesh is None:
+        return vstep
+
+    def mesh_step(state, z, dt):
+        g, k, ns = mesh_mod.axis(mesh, "state")
+        out = vstep(state.replace(
+            Sigma=mesh_mod.all_gather(state.Sigma, g, dim=2)), z, dt)
+        dc = out.Sigma.shape[2] // ns
+        return out.replace(
+            Sigma=out.Sigma[:, :, k * dc:(k + 1) * dc].contiguous())
+
+    return mesh_step
+
+
+def scaling_efficiency_probe(cfg: VIOConfig, mesh: DeviceMesh, batch: int,
+                             steps: int = 10) -> float:
+    """Seconds per mesh step of a batch of ``batch`` filters (every slot
+    active at positions drawn from seed 0, z = the features' own
+    positions, dt = 0.05), this rank's share on its device, after one
+    warm-up step; on the card timed between ``torch.cuda.synchronize``
+    calls."""
+    import time
+
+    dev = mesh_mod.mesh_device(mesh)
+    state = init_batched_state(cfg, batch,
+                               generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    specs = mesh_mod.filter_state_shardings(mesh, True)
+    state = mesh_mod.local_blocks(state, specs, mesh)
+    z = state.feat_mu[:, :, :2].contiguous()
+    step = make_batched_filter_step(cfg, mesh)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    state = step(state, z, 0.05)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state, z, 0.05)
+    sync()
+    return (time.perf_counter() - t0) / steps

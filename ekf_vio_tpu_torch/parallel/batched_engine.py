@@ -15,11 +15,14 @@ H100 (``PERF.md``): at B = 128 and 256 lanes one batch took 0.53 and
 is bound by the host issuing its ~1300 kernels and barely grows with the
 lanes.  It is the largest B measured; batches above it that it divides
 run as chunks of that size, one after another.  ``run_sequences_sharded``
-needs a device mesh and comes with the distributed layer.
+splits the lanes over a mesh's ``data`` groups: each runs
+``run_sequences_batched`` on its share with no collective until one
+all-gather at the end.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ekf_vio_tpu_torch import engine
 from ekf_vio_tpu_torch.config import VIOConfig
@@ -72,3 +75,27 @@ def run_sequences_batched(images, times, cfg: VIOConfig, cam: Camera,
                             times[i:i + microbatch], cfg, cam, dev)
             for i in range(0, b, microbatch)]
     return _concat(outs)
+
+
+def run_sequences_sharded(images, times, cfg: VIOConfig, cam: Camera,
+                          mesh: DeviceMesh, microbatch: int = MICROBATCH):
+    """``run_sequences_batched`` with the lanes split over the mesh's
+    ``data`` axis: data group i runs lanes [i·B/nd, (i+1)·B/nd) (its
+    ``host_local_batch`` share; the ranks of a ``state`` group run the
+    same lanes), with no collective in the steady state, then one
+    all-gather along ``data`` returns the whole batch, the shape the
+    mesh-less call returns, to every rank.  On the mesh's device."""
+    from torch.utils import _pytree
+
+    from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
+    from ekf_vio_tpu_torch.parallel.multihost import host_local_batch
+
+    g, i, nd = mesh_mod.axis(mesh, "data")
+    share = host_local_batch(images.shape[0], nd)
+    lo = i * share
+    out = run_sequences_batched(images[lo:lo + share], times[lo:lo + share],
+                                cfg, cam, microbatch=microbatch,
+                                device=mesh_mod.mesh_device(mesh))
+    leaves, spec = _pytree.tree_flatten(out)
+    return _pytree.tree_unflatten(
+        [mesh_mod.all_gather(x, g, dim=0) for x in leaves], spec)

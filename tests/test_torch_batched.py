@@ -254,11 +254,12 @@ def test_microbatches_split_divisible_batches_only(monkeypatch):
                                   out.num_tracked[:3].numpy())
 
 
-def test_batched_filter_step_matches_jax():
+def _batched_step_vs_jax(**options):
     n, b = 16, 4
     rng = np.random.RandomState(0)
     uv = rng.uniform(-1, 1, (b, n, 2)).astype(np.float32)
-    jcfg, cfg = JConfig(max_features=n), VIOConfig(max_features=n)
+    jcfg = JConfig(max_features=n, **options)
+    cfg = VIOConfig(max_features=n, **options)
 
     jbase = jbatched.ekf.init_state(jcfg)
     jstate = jax.vmap(lambda u: jbatched.ekf.add_features(
@@ -279,6 +280,18 @@ def test_batched_filter_step_matches_jax():
     sig = np.asarray(jout.Sigma)
     np.testing.assert_allclose(out.Sigma.numpy(), sig,
                                atol=1e-5 * np.abs(sig).max())
+
+
+def test_batched_filter_step_matches_jax():
+    _batched_step_vs_jax()
+
+
+@pytest.mark.parametrize("options", [{"square_root_form": True},
+                                     {"joseph_form": "product"}],
+                         ids=["square_root", "joseph_product"])
+def test_batched_filter_step_options_match_jax(options):
+    """The options that change the step's algebra, at the same bars."""
+    _batched_step_vs_jax(**options)
 
 
 def test_init_batched_state_draws_from_the_generator():

@@ -11,7 +11,8 @@ about one gray level on this texture; the resize blends at s·d +
 (s − 1)/2 as ``cv2.resize`` does, bitwise at factors 2 and 4); both
 frame-loader routes bitwise equal on 8-bit gray and RGB PNGs; a JAX
 ``save_npz`` file resumes in the port with one step equal to the JAX
-step (the bars of ``test_torch_engine.py``); insight outputs bitwise
+step (the bars of ``test_torch_engine.py``), and a port ``save_npz``
+file (the CLI's ``--checkpoint``) resumes in JAX at the same bars; insight outputs bitwise
 equal to the JAX module's; ``info`` and ``run --synthetic 12 --device
 cpu`` with the JAX CLI's summary keys, frames and mean_tracked.
 """
@@ -211,6 +212,51 @@ def test_a_jax_checkpoint_resumes_in_the_port(tmp_path):
         assert torch.equal(getattr(back, k), getattr(ts2.filt, k))
 
 
+def test_a_port_checkpoint_resumes_in_jax(tmp_path):
+    """The mirror image of the test above: the JAX ``load_npz`` reads a
+    file the port's ``save_npz`` wrote, and one JAX step from it equals
+    one port step, at the same bars."""
+    small, times = _small_frames(3)
+    kw = dict(max_features=64, num_features=50, min_new_feature_dist=8.0,
+              fast_threshold=30)
+    jcfg, cfg = JConfig(**kw), VIOConfig(**kw)
+    K = [[458.0 / 4, 0, 80.0], [0, 458.0 / 4, 60.0], [0, 0, 1]]
+    cam = interop.camera_from_K(K, 160, 120)
+    ts0 = engine.initialize(torch.from_numpy(small[0]),
+                            torch.tensor(times[0]), cfg, cam, device="cpu")
+    ts1, _ = engine.step(ts0, torch.from_numpy(small[1]),
+                         torch.tensor(times[1]), cfg, cam)
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_npz(path, ts1.filt)
+    filt = jcheckpoint.load_npz(path)
+    for k in interop.FILTER_FIELDS:
+        got = np.asarray(getattr(filt, k))
+        want = getattr(ts1.filt, k).numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        np.testing.assert_array_equal(got, want)
+    # and the port reads its own file back
+    back = checkpoint.load_npz(path, device="cpu")
+    for k in interop.FILTER_FIELDS:
+        assert torch.equal(getattr(back, k), getattr(ts1.filt, k))
+    ts2, out = engine.step(ts1, torch.from_numpy(small[2]),
+                           torch.tensor(times[2]), cfg, cam)
+    es1 = jengine.EngineState(
+        filt=filt, prev_pyr=tuple(jnp.asarray(x.numpy())
+                                  for x in ts1.prev_pyr),
+        frame_idx=jnp.int32(int(ts1.frame_idx)), lin_base=filt.base_mu)
+    jc = jengine.make_hashable_camera(K, 160, 120)
+    es2, jout = jax.jit(jengine.step, static_argnums=(3, 4))(
+        es1, jnp.asarray(small[2]), jnp.float32(times[2]), jcfg, jc)
+    assert int(out.num_tracked) == int(jout.num_tracked) > 30
+    np.testing.assert_array_equal(ts2.filt.active.numpy(),
+                                  np.asarray(es2.filt.active))
+    assert np.abs(ts2.filt.base_mu.numpy()
+                  - np.asarray(es2.filt.base_mu)).max() < 1e-4
+    sig = np.asarray(es2.filt.Sigma)
+    assert np.abs(ts2.filt.Sigma.numpy() - sig).max() < 1e-3 * max(
+        np.abs(sig).max(), 1.0)
+
+
 def test_checkpoint_loads_default_to_the_card(tmp_path):
     """Like every entry point, ``load`` and ``load_npz`` put the state on
     the card unless the caller passes device="cpu", and raise without
@@ -316,14 +362,19 @@ def test_cli_info_and_run_match_the_jax_cli(tmp_path):
                               if k in info["config"]}
     got = _cli("ekf_vio_tpu_torch", "run", "--synthetic", "12", "--device",
                "cpu", "--out", str(tmp_path / "t.tum"), "--checkpoint",
-               str(tmp_path / "s.pt"))
+               str(tmp_path / "s.npz"))
     want = _cli("ekf_vio_tpu", "run", "--synthetic", "12")
     assert set(got) - {"trajectory", "checkpoint"} == set(want)
     assert got["frames"] == want["frames"] == 12
     assert got["mean_tracked"] == want["mean_tracked"]
     assert np.loadtxt(tmp_path / "t.tum").shape == (11, 8)
-    back = checkpoint.load(str(tmp_path / "s.pt"), device="cpu")
-    assert back.Sigma.shape == (406, 406)
+    # --checkpoint writes the JAX package's npz: its load_npz reads it
+    jback = jcheckpoint.load_npz(str(tmp_path / "s.npz"))
+    back = checkpoint.load_npz(str(tmp_path / "s.npz"), device="cpu")
+    assert back.Sigma.shape == jback.Sigma.shape == (406, 406)
+    for k in interop.FILTER_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(jback, k)),
+                                      getattr(back, k).numpy())
 
 
 def test_cli_without_a_card_asks_for_the_cpu():
@@ -337,7 +388,8 @@ def test_cli_without_a_card_asks_for_the_cpu():
 
 
 def test_the_port_imports_no_jax():
-    """Every module of the port imports with jax and ekf_vio_tpu blocked."""
+    """Every module of the port imports with jax and ekf_vio_tpu blocked,
+    the distributed layer's among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -347,6 +399,9 @@ def test_the_port_imports_no_jax():
         "'ekf_vio_tpu_torch.') if not m.name.endswith('__main__')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "need = {'ekf_vio_tpu_torch.parallel.' + m for m in ('mesh', "
+        "'sharded_filter', 'sharded_engine', 'multihost', 'evidence')}\n"
+        "assert need <= set(names), need - set(names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('ekf_vio_tpu.')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
@@ -355,4 +410,4 @@ def test_the_port_imports_no_jax():
                        text=True, cwd=REPO, env=dict(os.environ,
                                                      PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 30
+    assert int(r.stdout.strip()) >= 35
