@@ -4,7 +4,15 @@
     python3 chip_smoke.py    # run every phase; needs one card
 
 Phases, each raising on failure (a non-zero exit); no phase's failure is
-caught and nothing falls back to the CPU:
+caught and nothing falls back to the CPU.  Every rollout of the port runs
+as one captured CUDA graph of its step, replayed once a frame
+(``ekf_vio_tpu_torch/scan.py``).  Each path (vision, (a)-(h), (j), the
+simulator, the CLI's streaming loop) runs graphed and eager (every
+``scan.scan`` as the Python loop over the step) in turns, graph, eager,
+graph, eager, on the same inputs: the launch counts
+of every run, every count of the results equal, every float no further
+from the eager result than a second eager run is; frames/s of both and
+the host time of each capture on a line of its own.
  1. device: the card's name and power limit, torch / CUDA / nvcc / triton
     versions; TF32 off.
  2. build: the three CUDA kernels of ekf_vio_tpu_torch/csrc, one nvcc
@@ -48,20 +56,20 @@ caught and nothing falls back to the CPU:
     kernel durations), wall time (CUDA events), and the roofline bound of
     the same work.
  8. the vision path: ``engine.run_sequence`` over 120 bench frames
-    downscaled on the card (one warm-up, best of 3): finite state, more
+    downscaled on the card: finite state, more
     than 10 tracks from frame 5 on, the 'cuda_lk' backend, the launch
     counts (lk_level T-1, fast9 T), and a 10-frame rollout on the card
     against the CPU.
  9. path (a): ``engine.run_sequence_imu`` over 120 rendered 320x240
-    frames at configs/mono_inertial.yaml's values (one warm-up, best of
-    2): 'cuda_lk', lk_level = T-1 and fast9 = T-9 launches, finite
+    frames at configs/mono_inertial.yaml's values: 'cuda_lk', lk_level =
+    T-1 and fast9 = T-9 launches, finite
     state, more than 10 tracks from 5 frames after the initialization,
     ATE under 0.01 m, and a 15-frame rollout on the card against the CPU.
 10. path (b): the same with klt_window_size=17: 'cuda_klt', klt_level =
     T-1 and lk_level = T-1 launches, finite state, more than 10 tracks.
 11. path (c): ``engine.run_sequence`` at configs/fast_with_insight.yaml
     with bench.py's overrides (400 features, 512 slots, D = 1558) over
-    120 bench frames at 320x240 (one warm-up, best of 2): 'cuda_lk',
+    120 bench frames at 320x240: 'cuda_lk',
     lk_level = T-1 and fast9 = T launches, finite state, more than 250
     tracks on average from frame 10 on, Σ finite, min diag >= -1e-5,
     asymmetry under 1e-3.
@@ -71,15 +79,16 @@ caught and nothing falls back to the CPU:
     rollout on the card against the CPU.
 13. path (e): ``parallel/batched_engine.run_sequences_batched`` over
     B = 16 lanes (bench frames of seeds 0-15) of 120 frames at 160x120,
-    128 slots (one warm-up, best of 2): 'cuda_lk', lk_level = T-1 and
+    128 slots: 'cuda_lk', lk_level = T-1 and
     fast9 = T launches for all lanes together, every lane finite with
     more than 10 tracks from frame 5 on, and a 10-frame batched rollout
     equal in every lane's num_tracked and num_active to a one-lane
     ``run_sequence`` on the card.
 14. the aggregate frames/s curve of the batched path at B = 1, 4, 16, 64
-    (60 frames each): per-lane and aggregate frames/s, launches per
-    batched step; then B = 128 and 256 lanes (30 frames) as one batch
-    against two chunks of half the lanes, what ``MICROBATCH`` is set by.
+    (60 frames each, graphed): per-lane and aggregate frames/s, launches
+    per batched step; then B = 128 and 256 lanes (30 frames) as one batch
+    against two chunks of half the lanes, what ``MICROBATCH`` is set by,
+    and the peak of device memory.
 15. path (f): ``run_sequences_batched`` over B = 4 rendered sequences
     (seeds 0-3) of 60 frames with klt_window_size=17: 'cuda_klt',
     klt_level = lk_level = T-1 and fast9 = T launches, every lane finite.
@@ -90,16 +99,20 @@ caught and nothing falls back to the CPU:
     --synthetic 60``, ``run --rendered 40 --config
     configs/mono_inertial.yaml`` (ATE under 0.01 m) and ``run --euroc`` on
     a 12-frame ASL tree the phase writes; the frame loader's route; native/
-    unchanged.
+    unchanged; then the streaming loop in this process (``--insight-dir``,
+    the compiled step ``scan.graphed(engine.step)`` replayed a frame, each
+    frame read back for drawing between replays), graphed against eager.
 18. torch.profiler traces of 5 steady-state steps of the vision path, of
     paths (a), (c) and (d), of the batched step at B = 16 and of path
-    (g)'s sharded step: kernels per step, time per ``vio.*`` layer, the
-    device's busy share.
+    (g)'s sharded step, run eagerly: kernels per step, time per ``vio.*``
+    layer (host-side spans, which a replay does not run), the device's
+    busy share.
 19. the distributed layer on one card: a NCCL process group of one rank
     (tcp://127.0.0.1 store, ``multihost.initialize_distributed``) and the
     (1, 1) ('data', 'state') mesh of ``mesh.make_mesh``.  Path (g):
     ``sharded_engine.run_sequence`` at path (c)'s configuration (512
-    slots, D = 1558) over 60 bench frames (one warm-up, best of 2):
+    slots, D = 1558) over 60 bench frames (the step and its NCCL
+    collectives in one graph):
     bench.py's asserts, Σ checks on the merged state, 'cuda_lk', lk_level
     = T-1 and fast9 = T launches, a 10-frame sharded rollout equal to the
     dense ``run_sequence`` in every count (base_mu within 5e-3), and the
@@ -114,7 +127,8 @@ caught and nothing falls back to the CPU:
     with CUDA events; the collectives of a profiler trace
     (``evidence.collective_inventory``) and ``evidence.memory_analysis``.
 22. path (j): the mesh step of ``batched.make_batched_filter_step(cfg,
-    mesh)`` on 4 lanes against the mesh-less step, the ms a step of
+    mesh)`` on 4 lanes against the mesh-less step, each compiled step
+    (``scan.graphed``) against its eager form, the ms a step of
     ``scaling_efficiency_probe``, and ``run_sequences_sharded`` over 4
     lanes of 30 frames equal to ``run_sequences_batched`` in every count.
 23. two ranks on the one card: two processes (``chip_smoke.py
@@ -122,9 +136,23 @@ caught and nothing falls back to the CPU:
     ranks on one GPU), mesh (1, 2): one sharded engine step and one
     sharded update, merged, against ns = 1 at f32 roundoff; the update
     of the ns = 2 stepped state on both sides, with the base_mu gap that
-    the step's roundoff leaves after each kind of update.
+    the step's roundoff leaves after each kind of update (gloo runs
+    eagerly: its collectives run on host threads).
+24. torch.profiler over 5 replayed steps of each path's compiled rollout
+    (vision, (a)-(h), (j), the CLI's streaming step, the simulator in both
+    forms) and the wall time of 5 more replays without it, each replay
+    timed alone between synchronisations: device ops and time a step, the
+    busy share, and each kernel's
+    launches a replayed step by its name in the trace, the witness that
+    the graph launched it (lk_level and fast9 once a step; klt_level once
+    on (b) and (f)).
 Every path runs with every launch count set to 0 just before it and read
-just after.  The JSON line before the card line lists each kernel with
+just after.  The kernels count their own launches on the card
+(``csrc/launch_count.cuh``), so a replay's launches are counted where
+they run; the ``kernels`` line holds the counts of the graphed runs.
+A ``[graphs]`` JSON line holds each path's graph and eager frames/s,
+capture times and replayed profile.  The JSON line before the card line
+lists each kernel with
 its launches on those runs (per path under ``launches_by_path``), its
 largest error against its plain version, its device time and its plain
 version's at the slice's shapes (every shape under ``by_shape``, the lane
@@ -134,6 +162,7 @@ true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -367,20 +396,205 @@ def _device_ms(fn, reps: int) -> float:
 def _reset_counts() -> None:
     from ekf_vio_tpu_torch.frontend import fast_cuda, klt_cuda, lk_cuda
 
-    lk_cuda.launches = fast_cuda.launches = klt_cuda.launches = 0
+    for module in (lk_cuda, fast_cuda, klt_cuda):
+        module.reset_launches()
 
 
 def _counts() -> dict:
     from ekf_vio_tpu_torch.frontend import fast_cuda, klt_cuda, lk_cuda
 
-    return {"lk_level": lk_cuda.launches, "fast9": fast_cuda.launches,
-            "klt_level": klt_cuda.launches}
+    return {"lk_level": lk_cuda.launches(), "fast9": fast_cuda.launches(),
+            "klt_level": klt_cuda.launches()}
+
+
+# --------------------------------------------------------------------------
+# Compiled rollouts: graph against eager, replayed profiles
+# --------------------------------------------------------------------------
+
+# each path's graph-vs-eager record and replayed profile, for the JSON line
+GRAPHS: dict = {}
+# the kernels' names in a profiler trace (csrc/*.cu), by wrapper
+KERNEL_SYMBOLS = {"lk_level": "lk_pyramid_kernel", "fast9": "fast9_kernel",
+                  "klt_level": "klt_pyramid_kernel"}
+
+
+@contextlib.contextmanager
+def _eager():
+    """The eager loop over the step: every rollout's ``scan.scan`` is
+    ``scan.loop`` and ``scan.graphed`` the function itself, as the port
+    ran before its rollouts were compiled."""
+    from ekf_vio_tpu_torch import scan
+
+    saved = scan.scan, scan.graphed
+    scan.scan, scan.graphed = scan.loop, (lambda fn: fn)
+    try:
+        yield
+    finally:
+        scan.scan, scan.graphed = saved
+
+
+def _gap(a, b) -> float:
+    """The largest |a - b| over the float leaves of two results (NaN
+    against NaN counts 0); inf if any other leaf differs."""
+    from torch.utils import _pytree
+
+    worst = 0.0
+    for x, y in zip(_pytree.tree_leaves(a), _pytree.tree_leaves(b),
+                    strict=True):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            d = torch.where(x.isnan() & y.isnan(), 0.0, (x - y).abs())
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        elif not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                  else x == y):
+            return float("inf")
+    return worst
+
+
+def _graph_vs_eager(tag: str, run, frames: int, want, card: str) -> dict:
+    """``run()`` graphed and eager in turns (graph, eager, graph, eager) on
+    the same inputs, every launch count set to 0 just before each run and
+    read just after: each run's counts equal ``want``; the graphed results
+    agree with the first eager one (every integer and bool leaf equal,
+    every float leaf no further from it than the second eager result is:
+    0 where the eager rollout is deterministic); frames/s of each mode
+    (``frames`` over the better of its two runs); the host time of each
+    capture on its own line.  Returns the last graphed result with the
+    numbers and the launch counts of the graphed runs."""
+    from ekf_vio_tpu_torch import scan
+
+    out = {"graph": [], "eager": []}
+    secs = {"graph": [], "eager": []}
+    capture_ms = []
+    counts = {}
+    for mode in ("graph", "eager", "graph", "eager"):
+        _reset_counts()
+        with _eager() if mode == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            secs[mode].append(time.perf_counter() - t0)
+        counts[mode] = _counts()
+        if counts[mode] != want:
+            raise AssertionError(f"[{tag}] {mode} launch counts "
+                                 f"{counts[mode]}, expected {want}")
+        if mode == "graph":
+            capture_ms.append(1e3 * scan.last["capture_s"])
+        out[mode].append(res)
+    eager_gap = _gap(out["eager"][1], out["eager"][0])
+    gap = max(_gap(g, out["eager"][0]) for g in out["graph"])
+    if not gap <= eager_gap:
+        raise AssertionError(f"[{tag}] graph and eager differ: {gap:.3e}, "
+                             f"eager and eager {eager_gap:.3e}")
+    fps = {m: frames / min(v) for m, v in secs.items()}
+    turns = " / ".join(f"{1e3 * secs[m][i]:.1f}" for i in (0, 1)
+                       for m in ("graph", "eager"))
+    print(f"[{tag}] compiled rollout: graph {fps['graph']:.1f} frames/s, "
+          f"eager {fps['eager']:.1f} frames/s ({frames} frames; in turns "
+          f"graph / eager / graph / eager {turns} ms) on {card}; graph vs "
+          f"eager max|d| {gap:.3e} (eager vs eager {eager_gap:.3e}); "
+          f"launches of each graphed run {counts['graph']}, of each eager "
+          f"run {counts['eager']}")
+    print(f"[{tag}] capture (host): "
+          f"{' / '.join(f'{ms:.1f}' for ms in capture_ms)} ms")
+    GRAPHS[tag] = {"graph_fps": fps["graph"], "eager_fps": fps["eager"],
+                   "capture_ms": capture_ms, "gap": gap,
+                   "eager_gap": eager_gap, "seconds": secs}
+    return {"result": out["graph"][-1], "fps": fps["graph"],
+            "eager_fps": fps["eager"], "counts": counts["graph"],
+            "step_ms": 1e3 * min(secs["graph"]) / frames,
+            "eager_step_ms": 1e3 * min(secs["eager"]) / frames}
+
+
+class _ProfiledGraph:
+    """A captured graph whose replays skip+1 .. skip+5 run under
+    torch.profiler and replays skip+6 .. skip+10 without it, each replay
+    timed alone between synchronisations (the host work a loop does
+    between replays stays out)."""
+
+    def __init__(self, graph, rec: dict):
+        self.graph, self.rec = graph, rec
+
+    def replay(self):
+        rec = self.rec
+        rec["n"] += 1
+        k = rec["n"] - rec["skip"]
+        if not 1 <= k <= 10:
+            self.graph.replay()
+            return
+        if k == 1:
+            rec["prof"].start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.graph.replay()
+        torch.cuda.synchronize()
+        rec["profiled_s" if k <= 5 else "plain_s"] += time.perf_counter() - t0
+        if k == 5:
+            rec["prof"].stop()
+
+
+def _profile_replays(tag: str, run, per_step: dict, skip: int = 5) -> dict:
+    """torch.profiler over 5 replays of ``run``'s captured step (replays
+    skip+1 .. skip+5): device ops (kernels and copies) per step and their
+    time; the step's wall time from the next 5 replays, without the
+    profiler, and the device's busy share of it; the witness that the
+    kernels ran inside the graph: each kernel's launches per replayed
+    step in the trace, by its name, equal ``per_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ekf_vio_tpu_torch import scan
+
+    rec = {"n": 0, "skip": skip, "profiled_s": 0.0, "plain_s": 0.0,
+           "prof": profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])}
+    real = scan._capture
+    scan._capture = lambda fn: _ProfiledGraph(real(fn), rec)
+    try:
+        run()
+    finally:
+        scan._capture = real
+    if rec["n"] < skip + 10:
+        raise AssertionError(f"[replay profile {tag}] {rec['n']} replays, "
+                             f"fewer than {skip + 10}")
+    ops = [e for e in rec["prof"].key_averages()
+           if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in ops) / 5
+    step_us = rec["plain_s"] * 1e6 / 5
+    seen = {name: sum(e.count for e in ops if sym in e.key) / 5
+            for name, sym in KERNEL_SYMBOLS.items()}
+    kernel_us = {name: sum(e.self_device_time_total for e in ops
+                           if sym in e.key) / 5
+                 for name, sym in KERNEL_SYMBOLS.items()}
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[replay profile {tag}] per replayed step: "
+          f"{sum(e.count for e in ops) / 5:.0f} device ops, "
+          f"{device_us:.0f} us of device time = "
+          f"{100 * device_us / step_us:.1f} % of the {step_us / 1e3:.3f} ms "
+          f"step (under the profiler {rec['profiled_s'] * 200:.3f} ms); "
+          f"kernels in the trace a step {seen}, their us a step "
+          f"{ {k: round(v, 1) for k, v in kernel_us.items()} }; top: "
+          + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 5:.0f} us"
+              for e in top))
+    if seen != per_step:
+        raise AssertionError(f"[replay profile {tag}] kernels a replayed "
+                             f"step {seen}, expected {per_step}")
+    prof = {"ops_per_step": sum(e.count for e in ops) / 5,
+            "device_us": device_us, "step_ms": step_us / 1e3,
+            "profiled_step_ms": rec["profiled_s"] * 200,
+            "busy": device_us / step_us, "kernels_per_step": seen,
+            "kernel_us": kernel_us,
+            "top": [(e.key[:60], e.self_device_time_total / 5)
+                    for e in top]}
+    GRAPHS.setdefault(tag, {})["replay_profile"] = prof
+    return prof
 
 
 def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
+    """The vision path: ``run_sequence`` (a captured graph of the step,
+    replayed once a frame) against the eager loop, in turns."""
     from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.frontend import (camera, fast_cuda, klt, klt_cuda,
-                                            lk_cuda)
+    from ekf_vio_tpu_torch.frontend import camera, klt
 
     cfg = _bench_cfg()
     s = cfg.inverse_image_scale
@@ -391,35 +605,22 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
                                    small.device)
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
-
-    best = float("inf")
-    counts = None
-    for rep in range(4):  # one warm-up, then best of 3
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, outs = engine.run_sequence(small, times_dev, cfg, cam)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = (lk_cuda.launches, fast_cuda.launches)
-        all_counts = _counts()
-        if counts != (n - 1, n):
-            raise AssertionError(f"launch counts {counts}, expected "
-                                 f"{(n - 1, n)}")
-        if klt_cuda.launches:
-            raise AssertionError("klt_level ran on the vision path")
-        if rep:
-            best = min(best, dt)
+    want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
+    ge = _graph_vs_eager(
+        "main", lambda: engine.run_sequence(small, times_dev, cfg, cam),
+        n - 1, want, card)
+    _, outs = ge["result"]
+    all_counts = ge["counts"]
     tracked = outs.num_tracked.cpu().numpy()
     if not torch.isfinite(outs.base_mu).all():
         raise AssertionError("non-finite base state")
     if tracked[5:].min() <= 10:
         raise AssertionError(f"lost tracking: {tracked.tolist()}")
-    fps = (n - 1) / best
+    fps = ge["fps"]
     print(f"[main] {n} frames 160x120, 128 slots: {fps:.1f} frames/s "
-          f"(best of 3: {best * 1e3:.1f} ms) on {card}; tracked min "
-          f"{tracked[5:].min()} mean {tracked.mean():.1f}; launches per run: "
-          f"lk_level {counts[0]}, fast9 {counts[1]}")
+          f"graphed on {card}; tracked min {tracked[5:].min()} mean "
+          f"{tracked.mean():.1f}; launches per run: lk_level "
+          f"{all_counts['lk_level']}, fast9 {all_counts['fast9']}")
 
     # a short rollout on the card against the plain twins on the CPU
     k = 10
@@ -434,13 +635,14 @@ def phase_main_path(frames_dev, times_dev, dev, card: str) -> dict:
           f"{dmu:.3e}")
     if not (same_tracked and same_active and dmu < 5e-3):
         raise AssertionError("card and CPU rollouts disagree")
-    return {"fps": fps, "launches": all_counts}
+    return {"fps": fps, "launches": all_counts, "step_ms": ge["step_ms"],
+            "eager_step_ms": ge["eager_step_ms"]}
 
 
 def phase_fwi_path(frames_dev, times_dev, card: str) -> dict:
     """Path (c): ``run_sequence`` at the fast_with_insight point (400
-    features, 512 slots, D = 1558, frames / 2) on the card (one warm-up,
-    best of 2), with bench.py's asserts for that point."""
+    features, 512 slots, D = 1558, frames / 2) on the card, graphed
+    against eager in turns, with bench.py's asserts for that point."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.frontend import camera, klt
 
@@ -454,19 +656,11 @@ def phase_fwi_path(frames_dev, times_dev, card: str) -> dict:
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
     want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
-    best = float("inf")
-    for rep in range(3):  # one warm-up, then best of 2
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        es, outs = engine.run_sequence(small, times_dev, cfg, cam)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _counts()
-        if counts != want:
-            raise AssertionError(f"launch counts {counts}, expected {want}")
-        if rep:
-            best = min(best, dt)
+    ge = _graph_vs_eager(
+        "path c", lambda: engine.run_sequence(small, times_dev, cfg, cam),
+        n - 1, want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
     tracked = outs.num_tracked.cpu().numpy()
     sig = es.filt.Sigma
     if not (torch.isfinite(outs.base_mu).all() and torch.isfinite(sig).all()):
@@ -478,14 +672,15 @@ def phase_fwi_path(frames_dev, times_dev, card: str) -> dict:
     if not (min_diag >= -1e-5 and asym < 1e-3):
         raise AssertionError(f"check_sigma: min diag {min_diag}, asymmetry "
                              f"{asym}")
-    fps = (n - 1) / best
+    fps = ge["fps"]
     print(f"[path c] run_sequence, {n} bench frames {small.shape[2]}x"
           f"{small.shape[1]}, {cfg.max_features} slots (D = {cfg.state_dim}), "
-          f"backend {backend}: {fps:.1f} frames/s (best of 2: "
-          f"{best * 1e3:.1f} ms) on {card}; tracked mean from frame 10 "
-          f"{tracked[10:].mean():.1f}, min {tracked[10:].min()}; min diag "
-          f"{min_diag:.3e}, asymmetry {asym:.3e}; launches {counts}")
-    return {"fps": fps, "launches": counts, "step_ms": 1e3 * best / (n - 1)}
+          f"backend {backend}: {fps:.1f} frames/s graphed on {card}; "
+          f"tracked mean from frame 10 {tracked[10:].mean():.1f}, min "
+          f"{tracked[10:].min()}; min diag {min_diag:.3e}, asymmetry "
+          f"{asym:.3e}; launches {counts}")
+    return {"fps": fps, "launches": counts, "step_ms": ge["step_ms"],
+            "eager_step_ms": ge["eager_step_ms"]}
 
 
 # --------------------------------------------------------------------------
@@ -593,9 +788,9 @@ def phase_klt(mono2) -> float:
         for name, p0, g0, v in cases:
             args = (pp, cp, p0, g0, v)
             pkw = dict(kw, lo=0, hi=2, win=win, min_eigen=cfg.klt_min_eigen)
-            before = klt_cuda.launches
+            before = klt_cuda.launches()
             got = klt_cuda.track_pyramid_cuda(*args, **pkw)
-            if klt_cuda.launches != before + 1:
+            if klt_cuda.launches() != before + 1:
                 raise AssertionError("a pyramid call is not one launch")
             ref = klt.track_pyramid_klt_plain(*args, **pkw)
             worst = max(worst, _level_cases_agree(
@@ -727,9 +922,9 @@ def phase_lanes(lane_inputs, frames_dev, seq) -> dict:
         kw = dict(lo=0, hi=hi, win=cfg.klt_window_size,
                   iters=cfg.klt_iterations, eps=cfg.klt_eps,
                   min_eigen=cfg.klt_min_eigen)
-        before = module.launches
+        before = module.launches()
         got = module.track_pyramid_cuda(pp, cp, px, px, valid, **kw)
-        if module.launches != before + 1:
+        if module.launches() != before + 1:
             raise AssertionError(f"[lanes] {kernel}: {key} is not one launch")
         singles = [module.track_pyramid_cuda(
             [x[b] for x in pp], [x[b] for x in cp], px[b], px[b], valid[b],
@@ -753,9 +948,9 @@ def phase_lanes(lane_inputs, frames_dev, seq) -> dict:
     for name, stack, thr in (("160x120 B=16", small, 30.0),
                              ("320x240 B=4", mono, 25.0)):
         for exact, imgs in ((True, torch.round(stack)), (False, stack)):
-            before = fast_cuda.launches
+            before = fast_cuda.launches()
             got = fast_cuda.detect_cuda(imgs.contiguous(), thr)
-            if fast_cuda.launches != before + 1:
+            if fast_cuda.launches() != before + 1:
                 raise AssertionError("[lanes] fast9 is not one launch")
             singles = torch.stack([fast_cuda.detect_cuda(x.contiguous(), thr)
                                    for x in imgs])
@@ -1071,8 +1266,8 @@ def _ate(seq, outs, start: int) -> float:
 
 
 def phase_mono_path(seq, win: int, card: str, sqrt: bool = False) -> dict:
-    """``run_sequence_imu`` over the rendered sequence on the card (one
-    warm-up, best of 2), with its backend and launch counts asserted:
+    """``run_sequence_imu`` over the rendered sequence on the card, graphed
+    against eager in turns, with its backend and launch counts asserted:
     path (a) (win 21), (b) (win 17) or (d) (win 21, square-root form)."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.core import filter as ekf
@@ -1095,20 +1290,13 @@ def phase_mono_path(seq, win: int, card: str, sqrt: bool = False) -> dict:
             seq.gravity_w)
     dev_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
                      for a in args)
-    best = float("inf")
-    for rep in range(3):  # one warm-up, then best of 2
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        es, outs = engine.run_sequence_imu(*dev_args, cfg, cam,
-                                           init_frames=k0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _counts()
-        if counts != want:
-            raise AssertionError(f"launch counts {counts}, expected {want}")
-        if rep:
-            best = min(best, dt)
+    tag = "d" if sqrt else "a" if win == 21 else "b"
+    ge = _graph_vs_eager(
+        f"path {tag}", lambda: engine.run_sequence_imu(*dev_args, cfg, cam,
+                                                       init_frames=k0),
+        n - 1, want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
     tracked = outs.num_tracked.cpu().numpy()
     if not (torch.isfinite(outs.base_mu).all()
             and torch.isfinite(es.filt.Sigma).all()):
@@ -1116,8 +1304,7 @@ def phase_mono_path(seq, win: int, card: str, sqrt: bool = False) -> dict:
     if tracked[5:].min() <= 10:
         raise AssertionError(f"lost tracking: {tracked.tolist()}")
     ate = _ate(seq, outs, k0)
-    fps = (n - 1) / best
-    tag = "d" if sqrt else "a" if win == 21 else "b"
+    fps = ge["fps"]
     if sqrt:  # the state carries the factor: audit its square
         min_diag, asym = (float(x) for x in ekf.check_sigma(
             sqrt_filter.to_covariance(es.filt)))
@@ -1127,13 +1314,13 @@ def phase_mono_path(seq, win: int, card: str, sqrt: bool = False) -> dict:
             raise AssertionError("the squared factor fails check_sigma")
     print(f"[path {tag}] run_sequence_imu, {n} rendered frames 320x240, "
           f"128 slots, win {win}, backend {backend}: {fps:.1f} frames/s "
-          f"(best of 2: {best * 1e3:.1f} ms) on {card}; tracked min "
+          f"graphed (VI init included) on {card}; tracked min "
           f"{tracked[5:].min()} mean {tracked.mean():.1f}; ATE "
           f"{ate * 1e3:.2f} mm; launches {counts}")
     if win == 21 and not ate < 0.01:
         raise AssertionError(f"ATE {ate:.4f} m is not under 0.01 m")
     return {"fps": fps, "launches": counts, "ate": ate,
-            "step_ms": 1e3 * best / (n - 1)}
+            "step_ms": ge["step_ms"], "eager_step_ms": ge["eager_step_ms"]}
 
 
 def phase_mono_cpu_rollout(seq, sqrt: bool = False) -> None:
@@ -1299,13 +1486,14 @@ def _check_lanes(tag, es, outs, min_from: int = 5) -> None:
 
 def phase_batched_path(lanes, times, card: str) -> dict:
     """Path (e): ``run_sequences_batched`` over B = 16 lanes of 120 bench
-    frames at 160x120, 128 slots (one warm-up, best of 2): 'cuda_lk',
+    frames at 160x120, 128 slots, graphed against eager in turns: 'cuda_lk',
     lk_level = T-1 and fast9 = T launches for all lanes together, every
     lane finite with more than 10 tracks from frame 5 on; then a 10-frame
     batched rollout against a one-lane ``run_sequence`` of each lane on
     the card (equal num_tracked and num_active)."""
     from ekf_vio_tpu_torch import engine
     from ekf_vio_tpu_torch.frontend import klt
+    from ekf_vio_tpu_torch.parallel import batched_engine
 
     cfg = _bench_cfg()
     cam = _cam(cfg.inverse_image_scale)
@@ -1315,20 +1503,18 @@ def phase_batched_path(lanes, times, card: str) -> dict:
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
     want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
-    best = float("inf")
-    for rep in range(3):  # one warm-up, then best of 2
-        dt, es, outs, counts = _batched_run(lanes, times, cfg, cam, b)
-        if counts != want:
-            raise AssertionError(f"[path e] launch counts {counts}, "
-                                 f"expected {want}")
-        if rep:
-            best = min(best, dt)
+    ge = _graph_vs_eager(
+        "path e", lambda: batched_engine.run_sequences_batched(
+            lanes, times, cfg, cam, microbatch=b), b * (n - 1), want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
+    best = 1e-3 * ge["step_ms"] * b * (n - 1)
     _check_lanes("path e", es, outs)
     tracked = outs.num_tracked[:, 5:].float()
     print(f"[path e] run_sequences_batched, {b} lanes x {n} bench frames "
           f"160x120, 128 slots, backend {backend}: {b * (n - 1) / best:.1f} "
-          f"frames/s in all, {(n - 1) / best:.1f} a lane (best of 2: "
-          f"{best * 1e3:.1f} ms) on {card}; tracked from frame 5 min "
+          f"frames/s in all, {(n - 1) / best:.1f} a lane graphed "
+          f"({best * 1e3:.1f} ms) on {card}; tracked from frame 5 min "
           f"{int(tracked.min())} mean {tracked.mean():.1f}; launches "
           f"{counts}")
     k = 10
@@ -1348,7 +1534,8 @@ def phase_batched_path(lanes, times, card: str) -> dict:
         raise AssertionError(f"[path e] lanes {bad} differ from their "
                              f"one-lane rollouts")
     return {"fps": b * (n - 1) / best, "launches": counts,
-            "step_ms": 1e3 * best / (n - 1)}
+            "step_ms": 1e3 * best / (n - 1),
+            "eager_step_ms": ge["eager_step_ms"] * b}
 
 
 def _many_lanes(lanes16, b: int, n: int):
@@ -1392,21 +1579,24 @@ def phase_microbatch(lanes16, card: str, n: int = 30,
                      pairs=((128, 64), (256, 128))) -> dict:
     """What sets ``MICROBATCH``: B lanes as one batch against two chunks
     of B / 2 run one after the other (``run_sequences_batched``'s
-    microbatch rule), at B = 128 and 256 over 30 frames, in turns chunks,
-    one batch, one batch, chunks after a short warm-up of each shape;
+    microbatch rule, a graph captured for each chunk), at B = 128 and 256
+    over 30 frames, in turns chunks, one batch, one batch, chunks after a
+    short warm-up of each shape, with the peak of device memory;
     every lane finite with more than 10 tracks, launch counts one of each
     kernel per batched step of each chunk.  Returns {B: {microbatch: ms a
     frame of all B lanes}}."""
     cfg = _bench_cfg()
     cam = _cam(cfg.inverse_image_scale)
-    out = {}
+    out, peak = {}, {}
     for b, half in pairs:
         lanes, times = _many_lanes(lanes16, b, n)
         for mb in (half, b):  # warm-up of both shapes
             _batched_run(lanes[:, :5].contiguous(), times[:, :5], cfg, cam, mb)
         got = {half: [], b: []}
         for mb in (half, b, b, half):
+            torch.cuda.reset_peak_memory_stats()
             dt, es, outs, counts = _batched_run(lanes, times, cfg, cam, mb)
+            peak[(b, mb)] = torch.cuda.max_memory_allocated()
             _check_lanes(f"microbatch B={b} chunks of {mb}", es, outs)
             k = b // mb
             if counts["lk_level"] != k * (n - 1) or counts["fast9"] != k * n:
@@ -1421,6 +1611,12 @@ def phase_microbatch(lanes16, card: str, n: int = 30,
               f"{half} {out[b][half]:.2f} ms ({b / out[b][half] * 1e3:.1f} "
               f"frames/s; turns {', '.join(f'{x:.2f}' for x in got[half])})"
               f"; one batch / chunks {out[b][b] / out[b][half]:.3f} on {card}")
+        print(f"[microbatch] B={b}: torch.cuda.max_memory_allocated "
+              f"{peak[(b, b)] / 2 ** 20:.1f} MiB as one batch, "
+              f"{peak[(b, half)] / 2 ** 20:.1f} MiB in chunks of {half} "
+              f"(graphed; Sigma alone {b * cfg.state_dim ** 2 * 4 / 2 ** 20:.1f}"
+              f" MiB a copy)")
+        out[b]["peak_mib"] = peak[(b, b)] / 2 ** 20
     return out
 
 
@@ -1454,10 +1650,12 @@ def _path_f_cfg():
 def phase_batched_klt(seqs, card: str) -> dict:
     """Path (f): ``run_sequences_batched`` over B = 4 lanes of rendered
     320x240 sequences (seeds 0-3), 60 frames, klt_window_size=17 (vision
-    mode: no second tracker call): 'cuda_klt', klt_level = lk_level = T-1
+    mode: no second tracker call), graphed against eager in turns:
+    'cuda_klt', klt_level = lk_level = T-1
     and fast9 = T launches, every lane finite with more than 10 tracks
     from frame 5 on."""
     from ekf_vio_tpu_torch.frontend import klt
+    from ekf_vio_tpu_torch.parallel import batched_engine
 
     cfg = _path_f_cfg()
     cam = _mono_cam(seqs[0])
@@ -1469,18 +1667,17 @@ def phase_batched_klt(seqs, card: str) -> dict:
     if backend != "cuda_klt":
         raise AssertionError(f"tracker backend: {backend}")
     want = {"lk_level": n - 1, "fast9": n, "klt_level": n - 1}
-    best = float("inf")
-    for rep in range(2):  # one warm-up, then one timed run
-        dt, es, outs, counts = _batched_run(images, times, cfg, cam, b)
-        if counts != want:
-            raise AssertionError(f"[path f] launch counts {counts}, "
-                                 f"expected {want}")
-        if rep:
-            best = min(best, dt)
+    ge = _graph_vs_eager(
+        "path f", lambda: batched_engine.run_sequences_batched(
+            images, times, cfg, cam, microbatch=b), b * (n - 1), want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
+    best = 1e-3 * ge["step_ms"] * b * (n - 1)
     _check_lanes("path f", es, outs)
     print(f"[path f] run_sequences_batched, {b} lanes x {n} rendered frames "
           f"320x240, win 17, backend {backend}: {b * (n - 1) / best:.1f} "
-          f"frames/s in all ({best * 1e3:.1f} ms) on {card}; tracked from "
+          f"frames/s in all graphed ({best * 1e3:.1f} ms) on {card}; "
+          f"tracked from "
           f"frame 5 min {int(outs.num_tracked[:, 5:].min())}; launches "
           f"{counts}")
     return {"fps": b * (n - 1) / best, "launches": counts}
@@ -1489,8 +1686,8 @@ def phase_batched_klt(seqs, card: str) -> dict:
 def phase_simulator(card: str) -> None:
     """The closed-loop simulator on the card: the six reference scenarios
     (covariance form), then scenario 6 at 128 slots for 100 steps in both
-    forms, each held to min diag >= -1e-5, asymmetry < 1e-3 and a final
-    feat_err under 1e-3."""
+    forms, graphed against eager in turns, each held to min diag >= -1e-5,
+    asymmetry < 1e-3 and a final feat_err under 1e-3."""
     from ekf_vio_tpu_torch.config import VIOConfig
     from ekf_vio_tpu_torch.sim import simulator
 
@@ -1509,13 +1706,16 @@ def phase_simulator(card: str) -> None:
             simulator.run_reference_scenarios()):
         check(f"scenario {k + 1} ({scn.feature_count} features, "
               f"{len(telem[0])} steps)", telem)
+    none = {"lk_level": 0, "fast9": 0, "klt_level": 0}
     for sq in (False, True):
         cfg = VIOConfig(max_features=128, square_root_form=sq)
-        _, _, telem = simulator.run_scenario(
-            simulator.REFERENCE_SCENARIOS[5], cfg, 100,
-            generator=torch.Generator().manual_seed(0))
-        check(f"scenario 6, 128 slots, 100 steps, "
-              f"{'square-root' if sq else 'covariance'} form", telem)
+        form = "square-root" if sq else "covariance"
+        ge = _graph_vs_eager(
+            f"sim {form}", lambda cfg=cfg: simulator.run_scenario(
+                simulator.REFERENCE_SCENARIOS[5], cfg, 100,
+                generator=torch.Generator().manual_seed(0)), 100, none, card)
+        check(f"scenario 6, 128 slots, 100 steps, {form} form",
+              ge["result"][2])
     print(f"[sim] all in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1630,6 +1830,54 @@ def phase_cli_io(card: str) -> None:
     if _tree_digest(native) != before:
         raise AssertionError("[io] native/ changed")
     print(f"[io] native/ unchanged ({card})")
+    phase_cli_streaming(card)
+
+
+def phase_cli_streaming(card: str) -> dict:
+    """The CLI's streaming loop in this process: ``run --rendered 40
+    --config configs/mono_inertial.yaml --insight-dir DIR`` runs the
+    compiled step (``scan.graphed(engine.step)``, one replay a frame) and
+    reads each frame back for drawing between replays; graphed against
+    eager in turns: the summaries equal but for the CLI's frames/s,
+    lk_level = T-1 and fast9 = T-9 launches, ATE under 0.01 m."""
+    import io
+    import tempfile
+
+    from ekf_vio_tpu_torch import cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n, k0 = 40, _mono_cfg().vi_init_frames
+    cli_fps = []
+
+    def run():
+        with tempfile.TemporaryDirectory() as tmp:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["run", "--rendered", str(n), "--config",
+                               os.path.join(here, "configs",
+                                            "mono_inertial.yaml"),
+                               "--insight-dir", tmp, "--log-every", "0"])
+            pngs = len(os.listdir(tmp))
+        out = buf.getvalue()
+        summary = json.loads(out[out.index("{"):])
+        if rc != 0 or pngs != n - k0:
+            raise AssertionError(f"[cli streaming] rc {rc}, {pngs} frames "
+                                 f"drawn")
+        cli_fps.append(summary.pop("fps"))
+        return summary
+
+    want = {"lk_level": n - 1, "fast9": n - k0 + 1, "klt_level": 0}
+    ge = _graph_vs_eager("cli streaming", run, n - k0, want, card)
+    summary = ge["result"]
+    if summary["mode"] != "imu" or not summary["ate_rmse_m"] < 0.01:
+        raise AssertionError(f"[cli streaming] summary {summary}")
+    fps = {"graph": max(cli_fps[0::2]), "eager": max(cli_fps[1::2])}
+    GRAPHS["cli streaming"]["cli_fps"] = fps
+    print(f"[cli streaming] the CLI's own frames/s (the step and its "
+          f"sync, drawing excluded): graph {fps['graph']:.1f}, eager "
+          f"{fps['eager']:.1f}; ATE {summary['ate_rmse_m']} m; summary "
+          f"{json.dumps(summary)} ({card})")
+    return fps
 
 
 # --------------------------------------------------------------------------
@@ -1694,7 +1942,8 @@ def phase_sharded_fwi(frames_dev, times_dev, card: str, mesh,
                       dense_fps: float) -> dict:
     """Path (g): ``sharded_engine.run_sequence`` at path (c)'s
     configuration (fast_with_insight, 512 slots, D = 1558) on the (1, 1)
-    NCCL mesh over 60 frames (one warm-up, best of 2): bench.py's asserts
+    NCCL mesh over 60 frames, graphed (the step and its collectives in one
+    captured graph) against eager in turns: bench.py's asserts
     (finite state, more than 10 tracks from frame 5 on, more than 250 on
     average from frame 10), Σ checks on the merged state, 'cuda_lk',
     lk_level = T-1 and fast9 = T launches; a 10-frame sharded rollout
@@ -1716,32 +1965,23 @@ def phase_sharded_fwi(frames_dev, times_dev, card: str, mesh,
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
     want = {"lk_level": n - 1, "fast9": n, "klt_level": 0}
-    best = float("inf")
-    for rep in range(3):  # one warm-up, then best of 2
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        es, outs = se.run_sequence(small, times, cfg, cam, mesh)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _counts()
-        if counts != want:
-            raise AssertionError(f"[path g] launch counts {counts}, "
-                                 f"expected {want}")
-        if rep:
-            best = min(best, dt)
+    ge = _graph_vs_eager(
+        "path g", lambda: se.run_sequence(small, times, cfg, cam, mesh),
+        n - 1, want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
     tracked = outs.num_tracked.cpu().numpy()
     if not torch.isfinite(outs.base_mu).all():
         raise AssertionError("[path g] non-finite base state")
     if tracked[5:].min() <= 10 or not tracked[10:].mean() > 250:
         raise AssertionError(f"[path g] tracking: {tracked.tolist()}")
     _sharded_check_sigma("path g", es, mesh)
-    fps = (n - 1) / best
+    fps = ge["fps"]
     print(f"[path g] sharded_engine.run_sequence, {n} bench frames "
           f"{small.shape[2]}x{small.shape[1]}, {cfg.max_features} slots "
           f"(D = {cfg.state_dim}), mesh (1, 1) NCCL, backend {backend}: "
-          f"{fps:.1f} frames/s (best of 2: {best * 1e3:.1f} ms) against "
-          f"dense path (c) {dense_fps:.1f} frames/s in this call, on {card}; "
+          f"{fps:.1f} frames/s graphed against dense path (c) "
+          f"{dense_fps:.1f} frames/s in this call, on {card}; "
           f"tracked mean from frame 10 {tracked[10:].mean():.1f}, min "
           f"{tracked[10:].min()}; launches {counts}")
 
@@ -1765,13 +2005,13 @@ def phase_sharded_fwi(frames_dev, times_dev, card: str, mesh,
           f"launches {tri_counts} on the sharded and the dense engine")
     _same_rollout("path g, two-view depths", sh, de)
     return {"fps": fps, "launches": counts, "launches_backtrack": tri_counts,
-            "step_ms": 1e3 * best / (n - 1)}
+            "step_ms": ge["step_ms"], "eager_step_ms": ge["eager_step_ms"]}
 
 
 def phase_sharded_mono(seq, card: str, mesh) -> dict:
     """Path (h): ``sharded_engine.run_sequence_imu`` at path (a)'s
     configuration (128 slots, 21-px window) over the first 40 rendered
-    frames, VI initialization included (one warm-up, one timed run):
+    frames, VI initialization included, graphed against eager in turns:
     'cuda_lk', lk_level = T-1 (the VI initialization's chained tracks,
     then one a frame: in IMU mode the step makes no back-track, as the
     JAX step) and fast9 = T-9 launches, finite state, more than 10 tracks
@@ -1796,18 +2036,12 @@ def phase_sharded_mono(seq, card: str, mesh) -> dict:
     backend = klt.selected_backend((h, w), cfg.max_features, cfg, dev)
     if backend != "cuda_lk":
         raise AssertionError(f"tracker backend: {backend}")
-    for rep in range(2):  # one warm-up, then one timed run
-        _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        es, outs = se.run_sequence_imu(*args, cfg, cam, mesh,
-                                       init_frames=k0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = _counts()
-        if counts != want:
-            raise AssertionError(f"[path h] launch counts {counts}, "
-                                 f"expected {want}")
+    ge = _graph_vs_eager(
+        "path h", lambda: se.run_sequence_imu(*args, cfg, cam, mesh,
+                                              init_frames=k0),
+        n - 1, want, card)
+    es, outs = ge["result"]
+    counts = ge["counts"]
     tracked = outs.num_tracked.cpu().numpy()
     if not torch.isfinite(outs.base_mu).all():
         raise AssertionError("[path h] non-finite base state")
@@ -1818,10 +2052,10 @@ def phase_sharded_mono(seq, card: str, mesh) -> dict:
     _sharded_check_sigma("path h", es, mesh)
     ate = ate_rmse(seq.times[k0:n], outs.base_mu[:, :3].cpu().numpy(),
                    seq.times, seq.gt_pos)
-    fps = (n - 1) / dt
+    fps = ge["fps"]
     print(f"[path h] sharded_engine.run_sequence_imu, {n} rendered frames "
           f"320x240, 128 slots, mesh (1, 1) NCCL, backend {backend}: "
-          f"{fps:.1f} frames/s ({dt * 1e3:.1f} ms, VI init included) on "
+          f"{fps:.1f} frames/s graphed (VI init included) on "
           f"{card}; tracked min {tracked[5:].min()} mean {tracked.mean():.1f}"
           f"; ATE {ate * 1e3:.2f} mm; mean_nis 0 on every frame; launches "
           f"{counts}")
@@ -1892,8 +2126,10 @@ def phase_config5(card: str, mesh) -> dict:
 def phase_mesh_batching(lanes16, card: str, mesh) -> dict:
     """Path (j): the mesh step of ``make_batched_filter_step(cfg, mesh)``
     on 4 lanes at 128 slots against the mesh-less step (mean rtol 1e-5
-    atol 1e-5, Σ rtol 1e-4 atol 5e-5); ``scaling_efficiency_probe``'s ms
-    a step, and the mesh and mesh-less steps timed in turns;
+    atol 1e-5, Σ rtol 1e-4 atol 5e-5); each compiled step (a graph
+    replayed a call, the mesh step's all-gather inside it) against its
+    eager form; ``scaling_efficiency_probe``'s ms a step, and the mesh
+    and mesh-less steps, graphed and eager, timed in turns;
     ``run_sequences_sharded`` over 4 lanes of 30 bench frames
     equal to ``run_sequences_batched`` in every count, lk_level = T-1 and
     fast9 = T launches for all lanes together."""
@@ -1918,13 +2154,34 @@ def phase_mesh_batching(lanes16, card: str, mesh) -> dict:
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
             raise AssertionError(f"[path j] mesh step {k}: max diff "
                                  f"{(a - b).abs().max().item():.3e}")
+    # the compiled steps (scan.graphed: the first call captures, later
+    # calls replay) against the eager ones
+    with _eager():
+        eager_steps = {"mesh": batched.make_batched_filter_step(cfg, mesh),
+                       "meshless": batched.make_batched_filter_step(cfg)}
+    args = {"mesh": (local, z_l, 0.05), "meshless": (state, z, 0.05)}
+    steps = {"mesh": mesh_step, "meshless": meshless}
+    for k in ("mesh", "meshless"):
+        e1 = eager_steps[k](*args[k])
+        e2 = eager_steps[k](*args[k])
+        g = steps[k](*args[k])  # a replay: both were called before
+        gap, eager_gap = _gap(g, e1), _gap(e2, e1)
+        print(f"[path j] {k} step, graph vs eager max|d| {gap:.3e} (eager "
+              f"vs eager {eager_gap:.3e})")
+        if not gap <= eager_gap:
+            raise AssertionError(f"[path j] {k} step: graph and eager "
+                                 f"differ")
     probe_s = batched.scaling_efficiency_probe(cfg, mesh, 4, steps=10)
-    times = {"mesh": [], "meshless": []}
-    for k in ("mesh", "meshless", "meshless", "mesh"):
-        times[k].append(_wall_ms(
-            (lambda: mesh_step(local, z_l, 0.05)) if k == "mesh"
-            else (lambda: meshless(state, z, 0.05)), 10))
-    step_ms = {k: sum(v) / 2 for k, v in times.items()}
+    variants = [(k, m) for k in ("mesh", "meshless")
+                for m in ("graph", "eager")]
+    times = {v: [] for v in variants}
+    for k, m in variants + variants[::-1]:
+        fn = steps[k] if m == "graph" else eager_steps[k]
+        times[(k, m)].append(_wall_ms(lambda: fn(*args[k]), 10))
+    ms = {v: sum(t) / 2 for v, t in times.items()}
+    step_ms = {"mesh": ms[("mesh", "graph")],
+               "meshless": ms[("meshless", "graph")]}
+    GRAPHS["path j"] = {f"{k}_{m}_ms": t for (k, m), t in ms.items()}
 
     cam = _cam(cfg.inverse_image_scale)
     lanes = lanes16[:4, :30].contiguous()
@@ -1949,8 +2206,11 @@ def phase_mesh_batching(lanes16, card: str, mesh) -> dict:
     print(f"[path j] mesh step (4 lanes, 128 slots) equal to the mesh-less "
           f"step at the bars; scaling_efficiency_probe {probe_s * 1e3:.3f} "
           f"ms a step on {card}; CUDA events, 10 steps, in turns: mesh step "
-          f"{step_ms['mesh']:.3f} ms, mesh-less {step_ms['meshless']:.3f} "
-          f"ms; run_sequences_sharded 4 lanes x {n} frames "
+          f"graphed {ms[('mesh', 'graph')]:.3f} ms, eager "
+          f"{ms[('mesh', 'eager')]:.3f} ms; mesh-less graphed "
+          f"{ms[('meshless', 'graph')]:.3f} ms, eager "
+          f"{ms[('meshless', 'eager')]:.3f} ms; run_sequences_sharded 4 "
+          f"lanes x {n} frames "
           f"equal to run_sequences_batched in every count (max|dbase_mu| "
           f"{dmu:.3e}); launches {counts}")
     return {"launches": counts, "probe_ms": probe_s * 1e3,
@@ -1977,6 +2237,85 @@ def phase_sharded_profile(frames_dev, times_dev, step_ms: float,
             e, _ = se.step(e, small[i], times_dev[i], cfg, cam, mesh)
 
     _profile_steps(run, step_ms, "sharded 512-slot vision step")
+
+
+def phase_replay_profiles(frames_dev, times_dev, seq, seqs4, lanes16,
+                          mesh) -> None:
+    """torch.profiler over 5 replayed steps (replays 6-10) of each path's
+    compiled rollout, on its first frames, and the wall time of replays
+    11-15: device ops and time a step, the busy share, and the kernels by
+    name in the trace (the witness that the graph launched them)."""
+    import tempfile
+
+    from ekf_vio_tpu_torch import cli, engine
+    from ekf_vio_tpu_torch.config import VIOConfig
+    from ekf_vio_tpu_torch.frontend import camera
+    from ekf_vio_tpu_torch.parallel import batched, batched_engine
+    from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
+    from ekf_vio_tpu_torch.parallel import sharded_engine as se
+    from ekf_vio_tpu_torch.sim import simulator
+
+    n = 17  # frame 0, the eager frame 1, then 15 replays
+    one = {"lk_level": 1, "fast9": 1, "klt_level": 0}
+    both = {"lk_level": 1, "fast9": 1, "klt_level": 1}
+    none = {"lk_level": 0, "fast9": 0, "klt_level": 0}
+    bcfg, fcfg = _bench_cfg(), _fwi_cfg()
+    small = camera.downscale_image(frames_dev[:n], 4).contiguous()
+    half = camera.downscale_image(frames_dev[:n], 2).contiguous()
+    t = times_dev[:n]
+    k0 = _mono_cfg().vi_init_frames
+    mono = tuple(torch.from_numpy(np.ascontiguousarray(a[:m])).cuda()
+                 for a, m in ((seq.frames, k0 + n), (seq.times, k0 + n),
+                              (seq.imu_dt, k0 + n - 1),
+                              (seq.imu_gyro, k0 + n - 1),
+                              (seq.imu_accel, k0 + n - 1),
+                              (seq.gravity_w, 3)))
+    mcam = _mono_cam(seq)
+    _profile_replays("main", lambda: engine.run_sequence(
+        small, t, bcfg, _cam(4)), one)
+    _profile_replays("path c", lambda: engine.run_sequence(
+        half, t, fcfg, _cam(2)), one)
+    for tag, win, sq, per in (("path a", 21, False, one),
+                              ("path b", 17, False, both),
+                              ("path d", 21, True, one)):
+        _profile_replays(tag, lambda win=win, sq=sq: engine.run_sequence_imu(
+            *mono, _mono_cfg(win, sq), mcam, init_frames=k0), per)
+    _profile_replays("path e", lambda: batched_engine.run_sequences_batched(
+        lanes16[:, :n].contiguous(), t.expand(16, -1), bcfg, _cam(4)), one)
+    f_imgs = torch.from_numpy(np.stack([q.frames[:n] for q in seqs4])).cuda()
+    f_t = torch.from_numpy(np.stack([q.times[:n] for q in seqs4])).cuda()
+    _profile_replays("path f", lambda: batched_engine.run_sequences_batched(
+        f_imgs, f_t, _path_f_cfg(), mcam), both)
+    with tempfile.TemporaryDirectory() as tmp:
+        _profile_replays("cli streaming", lambda: cli._run_streaming(
+            mono[0], mono[1], _mono_cfg(), mcam, mono[2:5], tmp, 0,
+            gravity_w=mono[5]), one)
+    for sq in (False, True):
+        _profile_replays(
+            f"sim {'square-root' if sq else 'covariance'}",
+            lambda sq=sq: simulator.run_scenario(
+                simulator.REFERENCE_SCENARIOS[5],
+                VIOConfig(max_features=128, square_root_form=sq), n,
+                generator=torch.Generator().manual_seed(0)), none)
+    _profile_replays("path g", lambda: se.run_sequence(
+        half, t, fcfg, _cam(2), mesh), one)
+    _profile_replays("path h", lambda: se.run_sequence_imu(
+        *mono, _mono_cfg(), mcam, mesh, init_frames=k0), one)
+    state = batched.init_batched_state(
+        bcfg, 4, generator=torch.Generator().manual_seed(0),
+        device=mesh_mod.mesh_device(mesh))
+    local = mesh_mod.local_blocks(
+        state, mesh_mod.filter_state_shardings(mesh, True), mesh)
+    z = mesh_mod.local_blocks(state.feat_mu[:, :, :2] + 0.01,
+                              ("data", None, None), mesh)
+
+    def mesh_steps():
+        step = batched.make_batched_filter_step(bcfg, mesh)
+        s = local
+        for _ in range(n):
+            s = step(s, z, 0.05)
+
+    _profile_replays("path j", mesh_steps, none)
 
 
 def _two_rank_step(mesh, dev):
@@ -2234,14 +2573,18 @@ def main() -> int:
     phase_simulator(card)
     phase_cli_io(card)
     elapsed("simulator, CLI and I/O")
-    phase_profile(frames_dev, times_dev, 1e3 / vision["fps"], _bench_cfg(),
+    phase_profile(frames_dev, times_dev, vision["eager_step_ms"], _bench_cfg(),
                   "vision step")
-    phase_mono_profile(seq, path_a["step_ms"])
-    phase_profile(frames_dev, times_dev, path_c["step_ms"], _fwi_cfg(),
+    phase_mono_profile(seq, path_a["eager_step_ms"])
+    phase_profile(frames_dev, times_dev, path_c["eager_step_ms"], _fwi_cfg(),
                   "512-slot vision step")
-    phase_mono_profile(seq, path_d["step_ms"], sqrt=True)
-    phase_batched_profile(lanes16, curve[16]["step_ms"])
-    phase_sharded_profile(frames_dev, times_dev, path_g["step_ms"], mesh)
+    phase_mono_profile(seq, path_d["eager_step_ms"], sqrt=True)
+    phase_batched_profile(lanes16, path_e["eager_step_ms"])
+    phase_sharded_profile(frames_dev, times_dev, path_g["eager_step_ms"],
+                          mesh)
+    elapsed("eager per-layer profiles")
+    phase_replay_profiles(frames_dev, times_dev, seq, seqs4, lanes16, mesh)
+    elapsed("replayed profiles")
 
     runs = {"vision": vision["launches"], "path_a": path_a["launches"],
             "path_b": path_b["launches"], "path_c": path_c["launches"],
@@ -2274,6 +2617,7 @@ def main() -> int:
         "config5_ms": config5["ms"], "config5_memory": config5["memory"],
         "mesh_probe_ms": path_j["probe_ms"],
         "mesh_step_ms": path_j["step_ms"], "two_ranks": two_ranks}))
+    print("[graphs] " + json.dumps(GRAPHS))
     torch.distributed.destroy_process_group()
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,10 @@ the plain PyTorch versions of the kernels on the CPU):
 ``--checkpoint`` writes the final filter state with ``io/checkpoint.py``
 (``save_npz``: the JAX package's npz layout, which its ``load_npz``
 reads), ``--profile`` a ``torch.profiler`` Chrome trace with
-``utils/profiling.py``, and ``--insight-dir`` runs ``engine.step`` frame
-by frame and writes annotated PNGs without OpenCV.
+``utils/profiling.py``, and ``--insight-dir`` runs the compiled step
+(``scan.graphed(engine.step)``, one CUDA graph replayed a frame on the
+card) frame by frame and writes annotated PNGs without OpenCV.  Without
+it, the rollout is ``engine.run_sequence[_imu]``'s ``scan``.
 """
 from __future__ import annotations
 
@@ -202,8 +204,8 @@ def _run_streaming(imgs, ts, cfg, cam, imu, insight_dir, log_every,
     import torch
 
     from ekf_vio_tpu_torch import engine
-    from ekf_vio_tpu_torch.core import imu as imu_mod
     from ekf_vio_tpu_torch.frontend import camera as cam_mod
+    from ekf_vio_tpu_torch import scan
     from ekf_vio_tpu_torch.utils.profiling import FrameTimer
     from ekf_vio_tpu_torch.viz import insight
 
@@ -219,19 +221,22 @@ def _run_streaming(imgs, ts, cfg, cam, imu, insight_dir, log_every,
         start = cfg.vi_init_frames
     else:
         estate = engine.initialize(imgs[0], ts[0], cfg, cam, device=dev)
+    # the compiled step (jax.jit(engine.step) in the JAX CLI): on the
+    # card one captured graph of it, replayed once a frame; the drawing
+    # below reads its copied outputs back, outside the replay
+    if imu is not None:
+        body = engine.imu_step_body(cfg, cam, gravity_w)
+        frame_in = engine.imu_frames(imgs, ts, *imu, start=1)
+        step = scan.graphed(lambda es, *x: body(es, x))
+    else:
+        step = scan.graphed(
+            lambda es, img, t: engine.step(es, img, t, cfg, cam))
+        frame_in = (imgs[1:], ts[1:])
     timer = FrameTimer(log_every=log_every)
     outs = []
     for i in range(start, imgs.shape[0]):
         with timer.frame():
-            if imu is not None:
-                batch = imu_mod.ImuSample(dt=imu[0][i - 1],
-                                          gyro=imu[1][i - 1],
-                                          accel=imu[2][i - 1])
-                estate, out = engine.step(estate, imgs[i], ts[i], cfg, cam,
-                                          imu_batch=batch,
-                                          gravity_w=gravity_w)
-            else:
-                estate, out = engine.step(estate, imgs[i], ts[i], cfg, cam)
+            estate, out = step(estate, *(x[i - 1] for x in frame_in))
             _sync(dev)
         outs.append(out)
 

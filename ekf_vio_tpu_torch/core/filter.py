@@ -19,6 +19,7 @@ from ekf_vio_tpu_torch.core.state import (  # noqa: F401  (re-exports)
     FilterState,
     add_features,
     check_sigma,
+    device_scalar,
     drop_features,
     init_state,
 )
@@ -57,7 +58,7 @@ def predict(state: FilterState, cfg: VIOConfig, dt) -> FilterState:
     triangularization instead (core/sqrt_filter.py)."""
     if cfg.square_root_form:
         return sqrt_filter.predict_sqrt(state, cfg, dt)
-    dt = torch.as_tensor(dt, dtype=state.base_mu.dtype, device=state.device)
+    dt = device_scalar(dt, state.base_mu.dtype, state.device)
 
     Fb, Ffb, Ff = dynamics.process_jacobian_blocks(state.base_mu,
                                                    state.feat_mu, dt)

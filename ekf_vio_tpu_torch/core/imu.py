@@ -36,7 +36,7 @@ from torch.func import jacfwd, vmap
 
 from ekf_vio_tpu_torch.config import BASE_STATE_SIZE, VIOConfig
 from ekf_vio_tpu_torch.core import dynamics, lie
-from ekf_vio_tpu_torch.core.state import FilterState
+from ekf_vio_tpu_torch.core.state import FilterState, device_constant
 
 
 class ImuSample(NamedTuple):
@@ -77,11 +77,10 @@ _jac_noise = jacfwd(_f_with_noise, argnums=3)
 
 def imu_noise_psd(cfg: VIOConfig, device=None) -> torch.Tensor:
     """Diagonal continuous-time noise PSD for n = [n_g, n_a, n_bg, n_ba]."""
-    return torch.tensor(
+    return device_constant(
         [cfg.imu_gyro_noise ** 2] * 3 + [cfg.imu_accel_noise ** 2] * 3
         + [cfg.imu_gyro_bias_walk ** 2] * 3
-        + [cfg.imu_accel_bias_walk ** 2] * 3,
-        dtype=torch.float32, device=device)
+        + [cfg.imu_accel_bias_walk ** 2] * 3, device=device)
 
 
 def extend_batch_with_remainder(batch: ImuSample, rem) -> ImuSample:
@@ -255,7 +254,7 @@ def _mean_chain(x0: torch.Tensor, batch: ImuSample, gravity_w):
     omega = batch.gyro - b_g                          # [L, K, 3]
     dq = lie.quat_exp_omega(omega, dtc)               # [L, K, 4]
     c = _cumulative_quat_mul(dq)
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    ident = device_constant([1.0, 0.0, 0.0, 0.0], dtype, dev)
     c_excl = torch.cat([ident.expand(n_l, 1, 4), c[:, :-1]], 1)
     q_pre = lie.quat_mul(q0, c_excl)                  # [L, K, 4]
     q_pre_inv = lie.quat_conj(q_pre)
@@ -313,7 +312,7 @@ def compound_interval(base_mu, cfg: VIOConfig, batch: ImuSample, gravity_w,
     when ``lin_base`` is None)."""
     dtype, dev = base_mu.dtype, base_mu.device
     psd = imu_noise_psd(cfg, dev).to(dtype)
-    tail = torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=dev)
+    tail = device_constant([1.0] + [0.0] * 6, dtype, dev)
     x0 = torch.cat([base_mu, tail])
     k = batch.dt.shape[0]
     if lin_base is None:

@@ -109,7 +109,7 @@ def wipe_rows_factor(L: torch.Tensor, wipe: torch.Tensor,
 def predict_sqrt_factor(state: FilterState, cfg: VIOConfig,
                         dt) -> FilterState:
     """Factor-native process step: L' = tria([F L | √Q])."""
-    dt = torch.as_tensor(dt, dtype=state.base_mu.dtype, device=state.device)
+    dt = state_mod.device_scalar(dt, state.base_mu.dtype, state.device)
     Fb, Ffb, Ff = dynamics.process_jacobian_blocks(state.base_mu,
                                                    state.feat_mu, dt)
     Ffb, Ff = dynamics.mask_feature_jacobians(Ffb, Ff, state.active)

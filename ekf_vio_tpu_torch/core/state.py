@@ -10,6 +10,7 @@ and ``uv_cols`` reach it through reshaped views of the feature tail.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -47,6 +48,25 @@ class FilterState:
 
     def replace(self, **kw) -> "FilterState":
         return dataclasses.replace(self, **kw)
+
+
+def device_constant(values, dtype=torch.float32, device=None
+                    ) -> torch.Tensor:
+    """A 1-D tensor of Python numbers made on ``device`` by fills (one
+    ``torch.full`` per run of equal values), bitwise what ``torch.tensor``
+    gives: ``torch.tensor(values, device=...)`` copies from host memory,
+    which a capturing CUDA stream refuses."""
+    return torch.cat([torch.full((len(list(run)),), v, dtype=dtype,
+                                 device=device)
+                      for v, run in itertools.groupby(values)])
+
+
+def device_scalar(x, dtype, device) -> torch.Tensor:
+    """``x`` (a Python number or a tensor) as a 0-d tensor on ``device``;
+    a number by a fill, not a host copy (see ``device_constant``)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def register_dataclass_pytree(cls) -> None:

@@ -41,9 +41,12 @@
 //
 // C interface: fast9_detect(img, lanes, h, w, threshold, mask_first, out,
 // device, stream) launches on `stream` of `device` and returns cudaGetLastError().
+// Each launch counts itself on the card (launch_count.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "launch_count.cuh"
 
 namespace {
 
@@ -108,6 +111,7 @@ __device__ __forceinline__ float score_at(const float* in, int r, int c,
 __global__ void __launch_bounds__(kThreads)
     fast9_kernel(const float* __restrict__ img, int h, int w, float thr,
                  int mask_first, float* __restrict__ out) {
+  count_launch();
   constexpr int kLoads = (kInW * kInH + kThreads - 1) / kThreads;
   __shared__ float in[kInH * kInW];        // input with the halo
   __shared__ float sc[kScoreH * kScoreW];  // scores with a 1-px ring

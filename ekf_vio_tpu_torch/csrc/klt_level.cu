@@ -80,12 +80,15 @@
 // their loads overlap.
 //
 // C interface: klt_track_pyramid(levels, nlev, ...) launches on `stream`
-// of `device` and returns cudaGetLastError().
+// of `device` and returns cudaGetLastError().  Each launch counts itself
+// on the card (launch_count.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+
+#include "launch_count.cuh"
 
 constexpr int kMaxLevels = 4;
 
@@ -321,6 +324,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ eig_out,
                        float* __restrict__ err_out) {
   extern __shared__ __align__(16) float smem[];
+  count_launch();
   const int lane = blockIdx.y;
   const int n = lane * nfeat + blockIdx.x;  // index into [lanes, nfeat]
   const int tid = threadIdx.x;

@@ -9,10 +9,13 @@ EKFVIO.cpp:139-196):
 
 ``step`` is one frame over an ``EngineState`` of tensors; it reads
 nothing back from the device (no ``.item()``, no boolean-mask indexing,
-no ``if`` on a tensor), so a later change can capture it in a CUDA graph.
-``run_sequence`` (vision-only) and ``run_sequence_imu`` (mono-inertial,
-with the closed-form VI initialization of ``initialize_imu``) loop over
-the frames in Python.  The entry points run on the card unless the
+no ``if`` on a tensor) and builds no tensor from host data, so a CUDA
+graph can capture it.  ``run_sequence`` (vision-only) and
+``run_sequence_imu`` (mono-inertial, with the closed-form VI
+initialization of ``initialize_imu``) run it over the frames through
+``scan.scan``: on the card one captured graph of ``step``, replayed once
+a frame (the JAX package's ``jax.jit`` + ``lax.scan``); on the CPU a
+Python loop.  The entry points run on the card unless the
 caller passes ``device="cpu"``.  Each layer of ``step`` runs in a
 ``vio.*`` ``record_function`` span, so a ``torch.profiler`` trace
 attributes host and device time per layer.  With
@@ -29,12 +32,14 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
+from ekf_vio_tpu_torch import scan
 from ekf_vio_tpu_torch.config import BASE_STATE_SIZE, VIOConfig
 from ekf_vio_tpu_torch.core import depth_init
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.core import imu as imu_mod
 from ekf_vio_tpu_torch.core import lie, sqrt_filter, vi_init
-from ekf_vio_tpu_torch.core.state import register_dataclass_pytree
+from ekf_vio_tpu_torch.core.state import (device_constant,
+                                          register_dataclass_pytree)
 from ekf_vio_tpu_torch.core.update import (innovation_nis,
                                            innovation_nis_per_feature)
 from ekf_vio_tpu_torch.frontend import camera as cam_mod
@@ -72,6 +77,16 @@ def use_f32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def use_cusolver(dev: torch.device) -> None:
+    """On the card, every factorization in cuSOLVER: for batched ones
+    (vmapped lanes) PyTorch's default is MAGMA, whose queue set-up calls
+    cudaMalloc, which a capturing stream refuses (scan.py).  Like
+    ``use_f32_matmul``, a setting of the whole process, made by the entry
+    points whose rollouts ``scan`` captures."""
+    if dev.type == "cuda":
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+
+
 def _filter_sigma_diag(filt: ekf.FilterState,
                        cfg: VIOConfig) -> torch.Tensor:
     """diag(Σ) for either state form (factor mode stores L in .Sigma)."""
@@ -100,6 +115,7 @@ def initialize(img, t, cfg: VIOConfig, cam: Camera,
     and detect the initial feature set, on ``device``."""
     use_f32_matmul()
     dev = resolve_device(device)
+    use_cusolver(dev)
     img = _f32(img, dev)
     filt = ekf.init_state(cfg, device=dev)
     filt = filt.replace(t=torch.as_tensor(t, dtype=filt.t.dtype,
@@ -193,9 +209,10 @@ def _measurement_covariance(cfg: VIOConfig, cam: Camera, prev_img, cur_img,
                                                    prev_px, points)
     eye2 = torch.eye(2, device=cur_img.device)
     cov_px = cov_px + cfg.klt_measurement_variance_px * eye2[None]
-    scale = torch.tensor([[1.0 / (cam.fx * cam.fx), 1.0 / (cam.fx * cam.fy)],
-                          [1.0 / (cam.fx * cam.fy), 1.0 / (cam.fy * cam.fy)]],
-                         device=cur_img.device)
+    scale = device_constant(
+        [1.0 / (cam.fx * cam.fx), 1.0 / (cam.fx * cam.fy),
+         1.0 / (cam.fx * cam.fy), 1.0 / (cam.fy * cam.fy)],
+        device=cur_img.device).reshape(2, 2)
     return cov_px * scale[None]
 
 
@@ -223,9 +240,8 @@ def _two_view_depths(filt, cfg: VIOConfig, cam: Camera, prev_pyr, cur_pyr,
 def _recovered_base(base_mu: torch.Tensor) -> torch.Tensor:
     """The base state a tracking-lost recovery keeps: non-finite entries
     reset to the identity pose, the quaternion renormalized."""
-    init_mu = torch.zeros(BASE_STATE_SIZE, dtype=base_mu.dtype,
-                          device=base_mu.device)
-    init_mu[3] = 1.0
+    init_mu = device_constant([0.0] * 3 + [1.0] + [0.0] * 18, base_mu.dtype,
+                              base_mu.device)
     base = torch.where(torch.isfinite(base_mu), base_mu, init_mu)
     qn = torch.linalg.vector_norm(base[3:7])
     q = torch.where(qn > 1e-6, base[3:7] / torch.clamp(qn, min=1e-6),
@@ -419,25 +435,19 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
                        lin_base=new_lin_base), out
 
 
-def _stack_outputs(outs: list) -> StepOutputs:
-    return StepOutputs(*(torch.stack(field) for field in zip(*outs)))
-
-
 def run_sequence(images, times, cfg: VIOConfig, cam: Camera,
                  device="cuda"):
     """Vision-only rollout on ``device``: bootstrap on frame 0, then one
-    ``step`` per frame.
+    ``step`` per frame, through ``scan`` (one CUDA graph of the step,
+    replayed once a frame, on the card).
 
     images: [T, H, W] processed-scale grayscale; times: [T].
     Returns (final EngineState, StepOutputs stacked over frames 1..T-1)."""
     dev = resolve_device(device)
     images, times = _f32(images, dev), _f32(times, dev)
     estate = initialize(images[0], times[0], cfg, cam, device=dev)
-    outs = []
-    for i in range(1, images.shape[0]):
-        estate, out = step(estate, images[i], times[i], cfg, cam)
-        outs.append(out)
-    return estate, _stack_outputs(outs)
+    return scan.scan(lambda es, x: step(es, x[0], x[1], cfg, cam),
+                     estate, (images[1:], times[1:]))
 
 
 def initialize_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
@@ -449,6 +459,7 @@ def initialize_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
     consistent feature depths.  The world frame is frame 0's camera."""
     use_f32_matmul()
     dev = resolve_device(device)
+    use_cusolver(dev)
     images, times = _f32(images, dev), _f32(times, dev)
     imu_dt, imu_gyro = _f32(imu_dt, dev), _f32(imu_gyro, dev)
     imu_accel, gravity_w = _f32(imu_accel, dev), _f32(gravity_w, dev)
@@ -523,7 +534,8 @@ def run_sequence_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
                      cfg: VIOConfig, cam: Camera, init_frames: int = 0,
                      device="cuda"):
     """Mono-inertial rollout on ``device``: IMU strapdown between frames,
-    vision update at frames.
+    vision update at frames, through ``scan`` after the VI initialization
+    (which runs eagerly, once).
 
     images [T, H, W]; times [T]; imu_dt [T-1, K] per-interval sample dts
     (0 = padding); imu_gyro, imu_accel [T-1, K, 3]; gravity_w [3].  With
@@ -540,11 +552,27 @@ def run_sequence_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
     else:
         estate = initialize(images[0], times[0], cfg, cam, device=dev)
         start = 1
-    outs = []
-    for i in range(start, images.shape[0]):
-        batch = imu_mod.ImuSample(dt=imu_dt[i - 1], gyro=imu_gyro[i - 1],
-                                  accel=imu_accel[i - 1])
-        estate, out = step(estate, images[i], times[i], cfg, cam,
-                           imu_batch=batch, gravity_w=gravity_w)
-        outs.append(out)
-    return estate, _stack_outputs(outs)
+    return scan.scan(imu_step_body(cfg, cam, gravity_w), estate,
+                     imu_frames(images, times, imu_dt, imu_gyro, imu_accel,
+                                start))
+
+
+def imu_frames(images, times, imu_dt, imu_gyro, imu_accel, start: int):
+    """The ``xs`` of a mono-inertial rollout from frame ``start`` on: each
+    frame with the IMU samples of the interval that ends at it."""
+    n = images.shape[0]
+    return (images[start:], times[start:], imu_dt[start - 1:n - 1],
+            imu_gyro[start - 1:n - 1], imu_accel[start - 1:n - 1])
+
+
+def imu_step_body(cfg: VIOConfig, cam: Camera, gravity_w):
+    """``step`` in mono-inertial mode as a ``scan`` body over
+    ``imu_frames``."""
+    def body(estate, x):
+        img, t, dt, gyro, accel = x
+        return step(estate, img, t, cfg, cam,
+                    imu_batch=imu_mod.ImuSample(dt=dt, gyro=gyro,
+                                                accel=accel),
+                    gravity_w=gravity_w)
+
+    return body

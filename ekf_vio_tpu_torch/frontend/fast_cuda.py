@@ -26,13 +26,24 @@ from ekf_vio_tpu_torch.frontend.lanes import fold_lanes, unfold_lanes
 SOURCE = "ekf_vio_tpu_torch/csrc/fast9.cu"
 REPLACES = "ekf_vio_tpu/frontend/pallas_fast.py:43"
 
-# kernel launches (one per call) since the last reset
-launches = 0
+NAME = "fast9"
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches``, counted on the
+    card by each launch itself (``csrc/launch_count.cuh``), the replays
+    of a CUDA graph included; 0 where the kernel never ran."""
+    return cuda_lib.launch_count(NAME)
+
+
+def reset_launches() -> None:
+    """Set ``launches()`` to 0."""
+    cuda_lib.reset_launch_count(NAME)
 
 
 @functools.cache
 def _lib():
-    lib = cuda_lib.load("fast9")
+    lib = cuda_lib.load(NAME)
     lib.fast9_detect.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_int,
@@ -45,7 +56,6 @@ def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
     """NMS'd FAST-9 score map of a [H, W] float32 CUDA image, or of each
     frame of a [B, H, W] stack, with the margin order of ``fast.detect``,
     in one launch."""
-    global launches
     if not img.is_cuda:
         raise ValueError("detect_cuda needs a CUDA tensor")
     if img.dtype != torch.float32 or img.dim() not in (2, 3):
@@ -60,7 +70,7 @@ def detect_cuda(img: torch.Tensor, threshold: float) -> torch.Tensor:
                           int(fast.mask_before_nms(h, w)), out.data_ptr(),
                           img.device.index, cuda_lib.stream_ptr(img))
     cuda_lib.check(lib, rc, "fast9_detect")
-    launches += 1
+    cuda_lib.note_device(NAME, img.device.index)
     return out
 
 

@@ -34,13 +34,24 @@ REPLACES = "ekf_vio_tpu/frontend/pallas_klt.py:138"
 PATCH = 40  # pallas_klt.PATCH
 MAX_LEVELS = lk_cuda.MAX_LEVELS  # csrc/klt_level.cu kMaxLevels
 
-# kernel launches (one per pyramid call or level call) since the last reset
-launches = 0
+NAME = "klt_level"
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches``, counted on the
+    card by each launch itself (``csrc/launch_count.cuh``), the replays
+    of a CUDA graph included; 0 where the kernel never ran."""
+    return cuda_lib.launch_count(NAME)
+
+
+def reset_launches() -> None:
+    """Set ``launches()`` to 0."""
+    cuda_lib.reset_launch_count(NAME)
 
 
 @functools.cache
 def _lib():
-    lib = cuda_lib.load("klt_level")
+    lib = cuda_lib.load(NAME)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.klt_track_pyramid.argtypes = [lk_cuda.Levels, ci, vp, vp, vp, ci, ci,
                                       ci, ci, cf, cf, ci, ci, vp, vp, vp, vp,
@@ -64,7 +75,6 @@ def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
             iters: int, eps: float, min_eigen: float, gate_finest: bool,
             include_valid: bool):
     """One kernel launch over the given levels (finest first)."""
-    global launches
     n, lanes = pts.shape[-2], (pts.shape[0] if pts.dim() == 3 else 1)
     dev = pts.device
     g_out = torch.empty_like(pts)
@@ -79,7 +89,7 @@ def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
         int(include_valid), g_out.data_ptr(), ok.data_ptr(), eig.data_ptr(),
         err.data_ptr(), dev.index, cuda_lib.stream_ptr(pts))
     cuda_lib.check(lib, rc, "klt_track_pyramid")
-    launches += 1
+    cuda_lib.note_device(NAME, dev.index)
     return g_out, ok, eig, err
 
 

@@ -37,8 +37,19 @@ REPLACES = "ekf_vio_tpu/frontend/pallas_lk.py:200"
 MAX_LEVELS = 4   # csrc/lk_level.cu kMaxLevels
 MAX_WINDOW = 32  # at most 4 window pixels per thread, 256 threads a feature
 
-# kernel launches (one per pyramid call or level call) since the last reset
-launches = 0
+NAME = "lk_level"
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches``, counted on the
+    card by each launch itself (``csrc/launch_count.cuh``), the replays
+    of a CUDA graph included; 0 where the kernel never ran."""
+    return cuda_lib.launch_count(NAME)
+
+
+def reset_launches() -> None:
+    """Set ``launches()`` to 0."""
+    cuda_lib.reset_launch_count(NAME)
 
 
 class Levels(ctypes.Structure):
@@ -78,7 +89,7 @@ def check_layout(lib, prefix: str) -> None:
 
 @functools.cache
 def _lib():
-    lib = cuda_lib.load("lk_level")
+    lib = cuda_lib.load(NAME)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lk_track_pyramid.argtypes = [Levels, ci, vp, vp, vp, ci, ci, ci, ci,
                                      cf, cf, ci, vp, vp, vp, vp, ci, vp]
@@ -146,7 +157,6 @@ def check_pyramid(prev_pyr, cur_pyr, prev_pts, init_pts, valid, lo: int,
 def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
             iters: int, eps: float, min_eigen: float, gate_finest: bool):
     """One kernel launch over the given levels (finest first)."""
-    global launches
     if not 1 <= win <= MAX_WINDOW:
         raise ValueError(f"window {win} outside 1..{MAX_WINDOW}")
     n, lanes = pts.shape[-2], (pts.shape[0] if pts.dim() == 3 else 1)
@@ -163,7 +173,7 @@ def _launch(prevs, curs, inv_scales, pts, init, valid, *, win: int,
         ok.data_ptr(), eig.data_ptr(), err.data_ptr(), dev.index,
         cuda_lib.stream_ptr(pts))
     cuda_lib.check(lib, rc, "lk_track_pyramid")
-    launches += 1
+    cuda_lib.note_device(NAME, dev.index)
     return g_out, ok, eig, err
 
 

@@ -13,12 +13,12 @@ mesh-less step.
 from __future__ import annotations
 
 import torch
-
 from torch.distributed.device_mesh import DeviceMesh
 
+from ekf_vio_tpu_torch import scan
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.core import filter as ekf
-from ekf_vio_tpu_torch.engine import resolve_device
+from ekf_vio_tpu_torch.engine import resolve_device, use_cusolver
 from ekf_vio_tpu_torch.parallel import mesh as mesh_mod
 
 
@@ -34,6 +34,7 @@ def init_batched_state(cfg: VIOConfig, batch: int,
     so the two agree only on explicit ``uv``).  Returns a FilterState
     whose every tensor has a leading batch axis, on ``device``."""
     dev = resolve_device(device)
+    use_cusolver(dev)
     if uv is None:
         uv = torch.rand(batch, cfg.max_features, 2,
                         generator=generator) * 2.0 - 1.0
@@ -59,7 +60,13 @@ def make_batched_filter_step(cfg: VIOConfig, mesh: DeviceMesh | None = None):
     whole Σ, so its peak memory is O(B/nd · D²), and every rank of a
     ``state`` group does the same O(B/nd · D³) work: the mesh splits the
     lanes' compute over ``data`` only.  Needs (22 + 3N) divisible by the
-    ``state`` size (``mesh.aligned_capacity``)."""
+    ``state`` size (``mesh.aligned_capacity``).
+
+    On the card the step is ``scan.graphed`` (``jax.jit``): its first call
+    for each shape captures it, all-gather included on a NCCL mesh, and
+    later calls replay that graph, ``dt`` an input of it; on a gloo mesh
+    it runs eagerly.  Its factorizations must go to cuSOLVER
+    (``engine.use_cusolver``, which ``init_batched_state`` sets)."""
     def one_step(state, z, dt):
         state = ekf.predict(state, cfg, dt)
         eye = torch.eye(2, dtype=state.Sigma.dtype, device=state.device)
@@ -69,7 +76,7 @@ def make_batched_filter_step(cfg: VIOConfig, mesh: DeviceMesh | None = None):
 
     vstep = torch.func.vmap(one_step, in_dims=(0, 0, None))
     if mesh is None:
-        return vstep
+        return scan.graphed(vstep)
 
     def mesh_step(state, z, dt):
         g, k, ns = mesh_mod.axis(mesh, "state")
@@ -79,7 +86,8 @@ def make_batched_filter_step(cfg: VIOConfig, mesh: DeviceMesh | None = None):
         return out.replace(
             Sigma=out.Sigma[:, :, k * dc:(k + 1) * dc].contiguous())
 
-    return mesh_step
+    return scan.graphed(mesh_step) if mesh_mod.capturable(mesh) \
+        else mesh_step
 
 
 def scaling_efficiency_probe(cfg: VIOConfig, mesh: DeviceMesh, batch: int,

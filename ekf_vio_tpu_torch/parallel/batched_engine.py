@@ -3,8 +3,11 @@
 Port of ``ekf_vio_tpu/parallel/batched_engine.py`` without a mesh
 (BASELINE.json config 4, "all EuRoC MH/V sequences data-parallel").  The
 JAX package vmaps its scanned rollout; here ``torch.func.vmap`` maps the
-port's own ``engine.initialize`` and ``engine.step`` over the lanes, one
-frame at a time, so every tensor op of a step runs once for all lanes.
+port's own ``engine.initialize`` and ``engine.step`` over the lanes and
+``scan.scan`` runs the vmapped step over the frames (on the card one
+captured CUDA graph of it, replayed once a frame; each chunk of a
+microbatched call captures its own), so every tensor op of a step runs
+once for all lanes.
 The kernels are custom operators whose vmap rules fold the lanes into one
 launch: a batched step launches ``lk_level`` and ``fast9`` once (plus
 ``klt_level`` once on the 'pallas_klt' rule), as one lane does.
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ekf_vio_tpu_torch import engine
+from ekf_vio_tpu_torch import engine, scan
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.frontend.camera import Camera
 
@@ -48,12 +51,11 @@ def _run_microbatch(images, times, cfg: VIOConfig, cam: Camera, dev):
         lambda im, t: engine.initialize(im, t, cfg, cam, device=dev))
     step = torch.func.vmap(lambda es, im, t: engine.step(es, im, t, cfg, cam))
     estate = init(images[:, 0], times[:, 0])
-    outs = []
-    for i in range(1, images.shape[1]):
-        estate, out = step(estate, images[:, i], times[:, i])
-        outs.append(out)
-    return estate, engine.StepOutputs(
-        *(torch.stack(field, 1) for field in zip(*outs)))
+    # frames lead in the scan: xs [T-1, B, ...], ys back to [B, T-1, ...]
+    estate, outs = scan.scan(lambda es, x: step(es, *x), estate,
+                             (images[:, 1:].transpose(0, 1),
+                              times[:, 1:].T))
+    return estate, engine.StepOutputs(*(y.transpose(0, 1) for y in outs))
 
 
 def run_sequences_batched(images, times, cfg: VIOConfig, cam: Camera,

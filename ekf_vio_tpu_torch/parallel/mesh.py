@@ -74,6 +74,14 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def capturable(mesh: DeviceMesh) -> bool:
+    """Whether a CUDA graph can hold the mesh's collectives: NCCL runs
+    them on the card's streams; gloo runs them on host threads, which no
+    graph captures."""
+    return all(dist.get_backend(mesh.get_group(name)) == "nccl"
+               for name in AXES)
+
+
 # --------------------------------------------------------------------------
 # Collectives (contiguous buffers; bool travels as uint8)
 # --------------------------------------------------------------------------

@@ -15,9 +15,12 @@ helpers (``_track_and_gate``, ``_depth_boot_select``,
 ``_two_view_depths``, ``_replenish_candidates`` and the recovered base
 state); only the covariance operations differ.  The reference defect ``mean_nis = 0.0`` is reproduced.
 
-``step`` reads nothing back to the host; ``run_sequence`` and
-``run_sequence_imu`` loop over the frames in Python, as the port's
-``engine`` does.  They run on the mesh's device.
+``step`` reads nothing back to the host.  ``run_sequence`` and
+``run_sequence_imu`` run it over the frames on the mesh's device: on a
+NCCL mesh through ``scan.scan`` (one captured CUDA graph of the step and
+its collectives, replayed once a frame), as the port's ``engine`` does;
+on a gloo mesh through ``scan.loop``, since gloo runs its collectives on
+host threads, which no CUDA graph can capture.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import dataclasses
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ekf_vio_tpu_torch import engine
+from ekf_vio_tpu_torch import engine, scan
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.core import imu as imu_mod
@@ -35,7 +38,7 @@ from ekf_vio_tpu_torch.frontend import klt
 from ekf_vio_tpu_torch.frontend.camera import Camera
 from ekf_vio_tpu_torch.parallel import sharded_filter as sf
 from ekf_vio_tpu_torch.parallel.mesh import (all_gather, all_true, axis,
-                                             mesh_device)
+                                             capturable, mesh_device)
 
 
 @dataclasses.dataclass
@@ -202,6 +205,11 @@ def _recover_tracking_lost(filt: sf.ShardedFilterState, cfg: VIOConfig,
         for f in dataclasses.fields(sf.ShardedFilterState)})
 
 
+def _rollout(mesh: DeviceMesh):
+    """``scan.scan`` on a NCCL mesh, ``scan.loop`` on a gloo one."""
+    return scan.scan if capturable(mesh) else scan.loop
+
+
 def run_sequence(images, times, cfg: VIOConfig, cam: Camera,
                  mesh: DeviceMesh):
     """Vision-only rollout on the split state: ``initialize`` on frame 0,
@@ -210,11 +218,9 @@ def run_sequence(images, times, cfg: VIOConfig, cam: Camera,
     dev = mesh_device(mesh)
     images, times = engine._f32(images, dev), engine._f32(times, dev)
     estate = initialize(images[0], times[0], cfg, cam, mesh)
-    outs = []
-    for i in range(1, images.shape[0]):
-        estate, out = step(estate, images[i], times[i], cfg, cam, mesh)
-        outs.append(out)
-    return estate, engine._stack_outputs(outs)
+    return _rollout(mesh)(
+        lambda es, x: step(es, x[0], x[1], cfg, cam, mesh), estate,
+        (images[1:], times[1:]))
 
 
 def run_sequence_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
@@ -238,11 +244,13 @@ def run_sequence_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
         dense = engine.initialize(images[0], times[0], cfg, cam, device=dev)
         start = 1
     estate = _from_dense(dense, mesh)
-    outs = []
-    for i in range(start, images.shape[0]):
-        batch = imu_mod.ImuSample(dt=imu_dt[i - 1], gyro=imu_gyro[i - 1],
-                                  accel=imu_accel[i - 1])
-        estate, out = step(estate, images[i], times[i], cfg, cam, mesh,
-                           imu_batch=batch, gravity_w=gravity_w)
-        outs.append(out)
-    return estate, engine._stack_outputs(outs)
+
+    def body(es, x):
+        img, t, dt, gyro, accel = x
+        return step(es, img, t, cfg, cam, mesh,
+                    imu_batch=imu_mod.ImuSample(dt=dt, gyro=gyro,
+                                                accel=accel),
+                    gravity_w=gravity_w)
+
+    return _rollout(mesh)(body, estate, engine.imu_frames(
+        images, times, imu_dt, imu_gyro, imu_accel, start))

@@ -374,7 +374,7 @@ def sharded_predict(state: ShardedFilterState, cfg: VIOConfig, dt,
     random-walk process): Jacobian blocks whole on every rank (O(N)),
     the covariance propagation on the blocks."""
     dev, dtype = state.bb.device, state.bb.dtype
-    dt = torch.as_tensor(dt, dtype=state.base_mu.dtype, device=dev)
+    dt = state_mod.device_scalar(dt, state.base_mu.dtype, dev)
     Fb, Ffb, Ff = dynamics.process_jacobian_blocks(state.base_mu,
                                                    state.feat_mu, dt)
     Ffb, Ff = dynamics.mask_feature_jacobians(Ffb, Ff, state.active)

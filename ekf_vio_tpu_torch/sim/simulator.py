@@ -7,9 +7,10 @@ model, and noiseless projections with covariance diag(1e-5) fed back into
 the update.  The scene is drawn with a ``torch.Generator`` where the JAX
 package uses ``jax.random`` (the two draw different points from one
 seed); ``run_scenario`` also takes the scene's points, so both packages
-can run the same scene.  The rollout is a Python loop over ``predict`` /
-``update`` on ``device``; in square-root form the state carries the
-factor L through the loop and is squared at the end, as in the JAX
+can run the same scene.  The rollout is ``scan.scan`` over ``predict`` /
+``update`` on ``device`` (one captured CUDA graph of the step on the
+card, a Python loop on the CPU); in square-root form the state carries
+the factor L through the loop and is squared at the end, as in the JAX
 package.
 """
 from __future__ import annotations
@@ -18,10 +19,11 @@ from typing import NamedTuple
 
 import torch
 
+from ekf_vio_tpu_torch import scan
 from ekf_vio_tpu_torch.config import VIOConfig
 from ekf_vio_tpu_torch.core import filter as ekf
 from ekf_vio_tpu_torch.core import lie, sqrt_filter
-from ekf_vio_tpu_torch.engine import resolve_device
+from ekf_vio_tpu_torch.engine import resolve_device, use_cusolver
 
 
 class Scenario(NamedTuple):
@@ -87,15 +89,48 @@ def advance_ground_truth(gt: GroundTruth, omega, dt) -> GroundTruth:
     return GroundTruth(pos, quat, vel, accel)
 
 
+def _closed_loop_step(carry, scn: Scenario, cfg: VIOConfig, pts, valid,
+                      omega, meas_cov):
+    """One step of the closed loop, a ``scan`` body: predict, advance the
+    ground truth, project the scene, update.  ``carry`` is (state,
+    GroundTruth); the output is (min_diag, asym, pos_err, feat_err)."""
+    state, gt = carry
+    sq = cfg.square_root_form  # the state carries L
+    if sq:
+        state = sqrt_filter.predict_sqrt_factor(state, cfg, scn.dt)
+    else:
+        state = ekf.predict(state, cfg, scn.dt)
+    gt = advance_ground_truth(gt, omega, scn.dt)
+    z = project(pts, gt.pos, gt.quat)
+    if sq:
+        state = sqrt_filter.update_sqrt_factor(state, cfg, z, meas_cov, valid)
+        # diag(L Lᵀ) = row norms >= 0 by construction; L Lᵀ is exactly
+        # symmetric
+        min_diag = torch.min(sqrt_filter.sigma_diag_factor(state.Sigma))
+        asym = torch.zeros((), device=state.device)
+    else:
+        state = ekf.update_with_feature_positions(state, cfg, z, meas_cov,
+                                                  valid)
+        min_diag, asym = ekf.check_sigma(state)
+    pos_err = torch.linalg.vector_norm(state.base_mu[0:3] - gt.pos)
+    feat_err = torch.sum(torch.where(
+        valid, torch.linalg.vector_norm(state.feat_mu[:, :2] - z, dim=-1),
+        0.0)) / torch.clamp(valid.sum(), min=1)
+    return (state, gt), (min_diag, asym, pos_err, feat_err)
+
+
 def run_scenario(scn: Scenario, cfg: VIOConfig, num_steps: int,
                  generator: torch.Generator | None = None, points=None,
                  device="cuda"):
-    """Closed-loop rollout on ``device``.  The scene is ``points`` ([N, 3]
-    camera-frame points, the first ``scn.feature_count`` valid) when
-    given, else ``generate_scene(generator, ...)``.  Returns (final
-    state with a dense Σ, final GroundTruth, telemetry): telemetry is
-    (min_diag, asym, pos_err, feat_err), each [num_steps]."""
+    """Closed-loop rollout on ``device``, through ``scan`` (one captured
+    CUDA graph of the step on the card; ``scn.dt`` is a constant of it).
+    The scene is ``points`` ([N, 3] camera-frame points, the first
+    ``scn.feature_count`` valid) when given, else ``generate_scene(
+    generator, ...)``.  Returns (final state with a dense Σ, final
+    GroundTruth, telemetry): telemetry is (min_diag, asym, pos_err,
+    feat_err), each [num_steps]."""
     dev = resolve_device(device)
+    use_cusolver(dev)
     n = cfg.max_features
     if points is None:
         points, _ = generate_scene(generator, scn, n)
@@ -112,36 +147,15 @@ def run_scenario(scn: Scenario, cfg: VIOConfig, num_steps: int,
         accel=torch.tensor(scn.b_accel, dtype=torch.float32, device=dev))
     meas_cov = (torch.eye(2, device=dev) * 1e-5).expand(n, 2, 2)
 
-    sq = cfg.square_root_form  # the loop carries L; squared at the end
-    if sq:
+    if cfg.square_root_form:  # the loop carries L; squared at the end
         state = sqrt_filter.to_factor(state)
-    telem = []
-    for _ in range(num_steps):
-        if sq:
-            state = sqrt_filter.predict_sqrt_factor(state, cfg, scn.dt)
-        else:
-            state = ekf.predict(state, cfg, scn.dt)
-        gt = advance_ground_truth(gt, omega, scn.dt)
-        z = project(pts, gt.pos, gt.quat)
-        if sq:
-            state = sqrt_filter.update_sqrt_factor(state, cfg, z, meas_cov,
-                                                   valid)
-            # diag(L Lᵀ) = row norms >= 0 by construction; L Lᵀ is exactly
-            # symmetric
-            min_diag = torch.min(sqrt_filter.sigma_diag_factor(state.Sigma))
-            asym = torch.zeros((), device=dev)
-        else:
-            state = ekf.update_with_feature_positions(state, cfg, z,
-                                                      meas_cov, valid)
-            min_diag, asym = ekf.check_sigma(state)
-        pos_err = torch.linalg.vector_norm(state.base_mu[0:3] - gt.pos)
-        feat_err = torch.sum(torch.where(
-            valid, torch.linalg.vector_norm(state.feat_mu[:, :2] - z, dim=-1),
-            0.0)) / torch.clamp(valid.sum(), min=1)
-        telem.append((min_diag, asym, pos_err, feat_err))
-    if sq:
+    (state, gt), telem = scan.scan(
+        lambda c, _: _closed_loop_step(c, scn, cfg, pts, valid, omega,
+                                       meas_cov),
+        (state, gt), None, length=num_steps)
+    if cfg.square_root_form:
         state = sqrt_filter.to_covariance(state)
-    return state, gt, tuple(torch.stack(t) for t in zip(*telem))
+    return state, gt, telem
 
 
 def run_reference_scenarios(cfg: VIOConfig | None = None, seed: int = 0,

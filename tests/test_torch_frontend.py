@@ -240,10 +240,10 @@ class TestLK:
         np.testing.assert_array_equal(_np(got), _np(ref))
 
     def test_cpu_tensors_never_reach_the_kernels(self):
-        before = (lk_cuda.launches, fast_cuda.launches)
+        before = (lk_cuda.launches(), fast_cuda.launches())
         _track_torch(*lk_case("translation"), VIOConfig(max_features=32))
         fast_cuda.detect(torch.from_numpy(blocks()), 30.0)
-        assert (lk_cuda.launches, fast_cuda.launches) == before
+        assert (lk_cuda.launches(), fast_cuda.launches()) == before
         with pytest.raises(ValueError):
             fast_cuda.detect_cuda(torch.zeros(8, 8), 30.0)
         with pytest.raises(ValueError):

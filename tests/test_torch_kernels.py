@@ -145,10 +145,10 @@ class TestKernelsOnCard:
         cp = pyramid.build_pyramid(t(cur), levels)
         kw = dict(lo=0, hi=levels, win=21, iters=30, eps=0.01,
                   min_eigen=1e-4)
-        before = lk_cuda.launches
+        before = lk_cuda.launches()
         g, ok, eig, err = lk_cuda.track_pyramid_cuda(
             pp, cp, t(q), t(init), t(valid), **kw)
-        assert lk_cuda.launches == before + 1
+        assert lk_cuda.launches() == before + 1
         rg, rok, reig, rerr = klt.track_pyramid_plain(
             pp, cp, t(q), t(init), t(valid), **kw)
         np.testing.assert_array_equal(_np(ok), _np(rok))
@@ -222,10 +222,10 @@ class TestKernelsOnCard:
         pp = pyramid.build_pyramid(t(prev), 3)
         cp = pyramid.build_pyramid(t(cur), 3)
         kw = dict(lo=0, hi=2, win=win, iters=30, eps=0.01, min_eigen=1e-4)
-        before = klt_cuda.launches
+        before = klt_cuda.launches()
         g, ok, eig, err = klt_cuda.track_pyramid_cuda(
             pp, cp, t(q), t(init), t(valid), **kw)
-        assert klt_cuda.launches == before + 1
+        assert klt_cuda.launches() == before + 1
         rg, rok, reig, rerr = klt.track_pyramid_klt_plain(
             pp, cp, t(q), t(init), t(valid), **kw)
         np.testing.assert_array_equal(_np(ok), _np(rok))
@@ -258,9 +258,9 @@ class TestKernelsOnCard:
         img = blocks(*shape, seed=2, n=80) if integer else (
             textured(*shape) * 0.5 + blocks(*shape, seed=2, n=80) * 0.5)
         x = torch.from_numpy(img).to(cuda)
-        before = fast_cuda.launches
+        before = fast_cuda.launches()
         got = _np(fast_cuda.detect_cuda(x, 30.0))
-        assert fast_cuda.launches == before + 1
+        assert fast_cuda.launches() == before + 1
         ref = _np(fast.detect(x, 30.0))
         assert (ref > 0).sum() > 20
         if integer:
@@ -306,9 +306,9 @@ class TestLanesOnCard:
         module, plain = ((lk_cuda, klt.track_pyramid_plain) if kernel == "lk"
                          else (klt_cuda, klt.track_pyramid_klt_plain))
         kw = dict(lo=0, hi=2, win=win, iters=30, eps=0.01, min_eigen=1e-4)
-        before = module.launches
+        before = module.launches()
         got = module.track_pyramid_cuda(pp, cp, q, q, valid, **kw)
-        assert module.launches == before + 1
+        assert module.launches() == before + 1
         for b in range(q.shape[0]):
             one = module.track_pyramid_cuda([x[b] for x in pp],
                                             [x[b] for x in cp], q[b], q[b],
@@ -333,9 +333,9 @@ class TestLanesOnCard:
                 for s in range(4)]
         imgs[-1] = np.full(shape, np.nan, np.float32)  # a NaN lane
         x = torch.from_numpy(np.stack(imgs)).to(cuda)
-        before = fast_cuda.launches
+        before = fast_cuda.launches()
         got = fast_cuda.detect_cuda(x, 30.0)
-        assert fast_cuda.launches == before + 1
+        assert fast_cuda.launches() == before + 1
         for b in range(4):
             assert torch.equal(_bits(got[b]),
                                _bits(fast_cuda.detect_cuda(x[b], 30.0)))
@@ -354,12 +354,12 @@ class TestLanesOnCard:
 
         pp, cp, q, valid = _lane_scene(cuda, 4)
         cfg = VIOConfig(max_features=32)
-        before = (lk_cuda.launches, fast_cuda.launches)
+        before = (lk_cuda.launches(), fast_cuda.launches())
         res = torch.func.vmap(
             lambda a, b, p, v: tuple(klt.track(a, b, p, p, v, cfg)))(
                 pp, cp, q, valid)
         score = torch.func.vmap(lambda im: fast_cuda.detect(im, 30.0))(pp[0])
-        assert (lk_cuda.launches, fast_cuda.launches) == (before[0] + 1,
+        assert (lk_cuda.launches(), fast_cuda.launches()) == (before[0] + 1,
                                                           before[1] + 1)
         for b in range(4):
             one = klt.track([x[b] for x in pp], [x[b] for x in cp], q[b],

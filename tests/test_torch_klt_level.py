@@ -153,10 +153,11 @@ def test_track_under_the_klt_rule_matches_jax_level_loop():
 
     pp = pyramid.build_pyramid(torch.from_numpy(prev), 3)
     cp = pyramid.build_pyramid(torch.from_numpy(cur), 3)
-    before = (klt_cuda.launches, lk_cuda.launches)
+    before = (klt_cuda.launches(), lk_cuda.launches())
     got = klt.track(pp, cp, torch.from_numpy(q), torch.from_numpy(init),
                     torch.from_numpy(valid), cfg)
-    assert (klt_cuda.launches, lk_cuda.launches) == before  # CPU: no kernel
+    # CPU tensors: no kernel
+    assert (klt_cuda.launches(), lk_cuda.launches()) == before
     ref = _jax_klt_track(jpyr.build_pyramid(jnp.asarray(prev), 3),
                          jpyr.build_pyramid(jnp.asarray(cur), 3),
                          jnp.asarray(q), jnp.asarray(init),
@@ -199,11 +200,11 @@ def test_wrapper_checks_and_cpu_dispatch():
     prev, cur, q = _scene()
     t = torch.from_numpy
     v = torch.ones(32, dtype=torch.bool)
-    before = klt_cuda.launches
+    before = klt_cuda.launches()
     got = klt_cuda.track_level(t(prev), t(cur), t(q), t(q), v, win=17, **KW)
     ref = klt.track_level_klt_plain(t(prev), t(cur), t(q), t(q), v, win=17,
                                     **KW)
-    assert klt_cuda.launches == before
+    assert klt_cuda.launches() == before
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(_np(a), _np(b))
     with pytest.raises(ValueError):

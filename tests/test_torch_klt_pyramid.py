@@ -88,9 +88,9 @@ def test_pyramid_call_equals_the_level_loop(frames, case, win, n):
     cp = pyramid.build_pyramid(_t(frames[1]), 3)
     q, init, valid = (_t(a[:n]) for a in klt_case(case))
     cfg = VIOConfig(max_features=n, klt_window_size=win)
-    before = klt_cuda.launches
+    before = klt_cuda.launches()
     got = klt_cuda.track_pyramid(pp, cp, q, init, valid, cfg, 0, 2)
-    assert klt_cuda.launches == before  # CPU tensors: no kernel
+    assert klt_cuda.launches() == before  # CPU tensors: no kernel
     ref = _level_loop(pp, cp, q, init, valid, 0, 2, win)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(_np(a), _np(b))
@@ -238,7 +238,7 @@ def test_bad_inputs_raise(frames):
     cp = pyramid.build_pyramid(_t(frames[1]), 3)
     q, init, valid = (_t(a) for a in klt_case("plain"))
     cfg = VIOConfig(max_features=32, klt_window_size=17)
-    before = klt_cuda.launches
+    before = klt_cuda.launches()
     with pytest.raises(ValueError, match="40x40"):   # level 3 is 40x30
         klt_cuda.track_pyramid(pp, cp, q, init, valid, cfg, 0, 3)
     with pytest.raises(ValueError, match="outside"):
@@ -259,4 +259,4 @@ def test_bad_inputs_raise(frames):
                                     win=17, **KW)
     with pytest.raises(ValueError, match="CUDA"):
         klt_cuda.track_level_cuda(pp[0], cp[0], q, init, valid, win=17, **KW)
-    assert klt_cuda.launches == before
+    assert klt_cuda.launches() == before

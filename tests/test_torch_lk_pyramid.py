@@ -75,14 +75,14 @@ def test_pyramid_call_equals_the_level_loop(case):
     prev, cur, q, init, valid, levels = lk_case(case)
     pp, cp = _pyramids(prev, cur, levels)
     cfg = VIOConfig(max_features=q.shape[0])
-    before = lk_cuda.launches
+    before = lk_cuda.launches()
     got = lk_cuda.track_pyramid(pp, cp, _t(q), _t(init), _t(valid), cfg,
                                 0, levels)
     ref = _level_loop(pp, cp, _t(q), _t(init), _t(valid), cfg)
     _assert_bitwise(got, ref)
     res = klt.track(pp, cp, _t(q), _t(init), _t(valid), cfg)
     _assert_bitwise((res.points, res.status, res.min_eig, res.error), ref)
-    assert lk_cuda.launches == before  # CPU tensors: no kernel
+    assert lk_cuda.launches() == before  # CPU tensors: no kernel
 
 
 @pytest.mark.parametrize("case", ["translation", "seeded_flow", "borders",
@@ -153,9 +153,9 @@ def test_track_splits_levels_into_runs():
     assert klt.tracker_rule(pp[0].shape, 32, cfg) == "pallas_klt"
     assert [klt.klt_supported(p.shape, 32) for p in pp] == [False, True,
                                                             True, True]
-    before = (lk_cuda.launches, klt_cuda.launches)
+    before = (lk_cuda.launches(), klt_cuda.launches())
     res = klt.track(pp, cp, _t(q), _t(q), v, cfg)
-    assert (lk_cuda.launches, klt_cuda.launches) == before
+    assert (lk_cuda.launches(), klt_cuda.launches()) == before
     ref = _level_loop(pp, cp, _t(q), _t(q), v, cfg)
     _assert_bitwise((res.points, res.status, res.min_eig, res.error), ref)
     assert _np(res.status).sum() >= 24
@@ -166,7 +166,7 @@ def test_bad_inputs_raise():
     pp, cp = _pyramids(prev, cur, 4)
     cfg = VIOConfig(max_features=32)
     args = (_t(q), _t(init), _t(valid))
-    before = lk_cuda.launches
+    before = lk_cuda.launches()
     with pytest.raises(ValueError, match="at most"):  # 5 > MAX_LEVELS
         lk_cuda.track_pyramid(pp, cp, *args, cfg, 0, lk_cuda.MAX_LEVELS)
     with pytest.raises(ValueError, match="outside"):
@@ -186,4 +186,4 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="CUDA"):
         lk_cuda.track_pyramid_cuda(pp, cp, *args, lo=0, hi=2, win=21,
                                    iters=30, eps=0.01, min_eigen=1e-4)
-    assert lk_cuda.launches == before
+    assert lk_cuda.launches() == before
