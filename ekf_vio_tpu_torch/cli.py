@@ -15,7 +15,10 @@ the plain PyTorch versions of the kernels on the CPU):
 ``--checkpoint`` writes the final filter state with ``io/checkpoint.py``
 (``save_npz``: the JAX package's npz layout, which its ``load_npz``
 reads), ``--profile`` a ``torch.profiler`` Chrome trace with
-``utils/profiling.py``, and ``--insight-dir`` runs the compiled step
+``utils/profiling.py``, the program's recorder on: its spans (host and
+device stamps, which the replays of a captured step re-run) and its
+per-frame counts of tracked, gated, added and lost features merged into
+the trace on the profiler's clock, and ``--insight-dir`` runs the compiled step
 (``scan.graphed(engine.step)``, one CUDA graph replayed a frame on the
 card) frame by frame and writes annotated PNGs without OpenCV.  Without
 it, the rollout is ``engine.run_sequence[_imu]``'s ``scan``.
@@ -147,7 +150,8 @@ def cmd_run(args) -> int:
             gravity = estimate_gravity_world(imu[2][0])
         gravity = torch.as_tensor(gravity, dtype=torch.float32).to(dev)
 
-    ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
+    ctx = (trace(args.profile, dev, rows=max(4096, len(times) + 1))
+           if args.profile else contextlib.nullcontext())
     with ctx:
         if args.insight_dir:
             estate, outs, fps = _run_streaming(
@@ -320,8 +324,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--checkpoint",
                    help="save the final filter state (npz, the JAX "
                         "package's layout)")
-    r.add_argument("--profile",
-                   help="write a torch.profiler Chrome trace to this dir")
+    r.add_argument("--profile", metavar="DIR",
+                   help="write DIR/trace.json: a torch.profiler Chrome "
+                   "trace with the program's spans (vio.*, graphed.*, "
+                   "device stamps that replays re-run) and its per-frame "
+                   "counts (tracked, gated, added, lost) on the same clock")
     r.add_argument("--log-every", type=int, default=30,
                    help="streaming fps log period")
     r.add_argument("--device", default="cuda",

@@ -17,8 +17,13 @@ initialization of ``initialize_imu``) run it over the frames through
 a frame (the JAX package's ``jax.jit`` + ``lax.scan``); on the CPU a
 Python loop.  The entry points run on the card unless the
 caller passes ``device="cpu"``.  Each layer of ``step`` runs in a
-``vio.*`` ``record_function`` span, so a ``torch.profiler`` trace
-attributes host and device time per layer.  With
+``vio.*`` span (``utils/profiling.py``): a ``record_function`` range that
+a ``torch.profiler`` trace of an eager step attributes host and device
+time to and, with the recorder on, host spans and device stamps that a
+replayed graph of the step re-runs, so the per-layer device time of the
+compiled rollout is measured too.  A step is a ``vio.step`` frame and an
+initialization a ``vio.init`` frame of the recorder, which also counts
+the tracked, gated, added and lost features where they are decided.  With
 ``VIOConfig.square_root_form`` the state's ``Sigma`` field holds the lower
 Cholesky factor L across frames (core/sqrt_filter.py): factored once at
 initialization, then predict, update, drop, add and the depth bootstrap
@@ -30,7 +35,6 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ekf_vio_tpu_torch import scan
 from ekf_vio_tpu_torch.config import BASE_STATE_SIZE, VIOConfig
@@ -45,6 +49,7 @@ from ekf_vio_tpu_torch.core.update import (innovation_nis,
 from ekf_vio_tpu_torch.frontend import camera as cam_mod
 from ekf_vio_tpu_torch.frontend import klt, pyramid, replenish
 from ekf_vio_tpu_torch.frontend.camera import Camera
+from ekf_vio_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -109,6 +114,7 @@ def _f32(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(dev)
 
 
+@profiling.framed("vio.init")
 def initialize(img, t, cfg: VIOConfig, cam: Camera,
                device="cuda") -> EngineState:
     """First-frame bootstrap (EKFVIO.cpp:141-153): start the filter clock
@@ -272,9 +278,9 @@ def _track_and_gate(prev_pyr, filt, img, cfg: VIOConfig, cam: Camera,
     relative structure gate and the χ² innovation gate (``nis_of``:
     measured uv [N, 2] -> per-feature NIS [N]).  Returns (cur_pyr, the
     track result, prev_px, passed, measured_uv)."""
-    with record_function("vio.pyramid"):
+    with profiling.span("vio.pyramid"):
         cur_pyr = pyramid.build_pyramid(img, cfg.klt_max_pyramid_level)
-    with record_function("vio.track"):
+    with profiling.span("vio.track"):
         prev_px = cam_mod.metric_to_pixel(cam, filt.klt_ref)
         seed_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
         res = klt.track(prev_pyr, cur_pyr, prev_px, seed_px, filt.active,
@@ -283,13 +289,15 @@ def _track_and_gate(prev_pyr, filt, img, cfg: VIOConfig, cam: Camera,
                                                   cfg.kill_pad)
     measured_uv = cam_mod.pixel_to_metric(cam, res.points)
     if cfg.min_eigen_rel_gate > 0 or cfg.innovation_gate_chi2 > 0:
-        with record_function("vio.gates"):
+        with profiling.span("vio.gates"):
+            kept = passed
             if cfg.min_eigen_rel_gate > 0:
                 passed = passed & _rel_eig_keep(res.min_eig, passed,
                                                 cfg.min_eigen_rel_gate)
             if cfg.innovation_gate_chi2 > 0:
                 passed = passed & (nis_of(measured_uv)
                                    <= cfg.innovation_gate_chi2)
+            profiling.count("gated", kept, passed)  # passed ⊆ kept
     return cur_pyr, res, prev_px, passed, measured_uv
 
 
@@ -328,6 +336,7 @@ def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
         for f in dataclasses.fields(ekf.FilterState)})
 
 
+@profiling.framed("vio.step")
 def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
          imu_batch: imu_mod.ImuSample | None = None, gravity_w=None):
     """One frame (steady-state branch of addFrame, EKFVIO.cpp:154-173) on
@@ -345,7 +354,7 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
     # --- predict (process, EKFVIO.cpp:163)
     frame_qt = None  # exact inter-frame camera motion (IMU mode)
     if imu_batch is not None:
-        with record_function("vio.imu"):
+        with profiling.span("vio.imu"):
             lin = estate.lin_base if cfg.use_fej else None
             # the remainder of the interval not spanned by IMU samples is
             # appended as a zero-order-hold sample (dt = 0: a no-op)
@@ -356,7 +365,7 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
             filt, frame_qt = propagate(filt, cfg, batch, gravity_w,
                                        lin_base=lin)
     else:
-        with record_function("vio.predict"):
+        with profiling.span("vio.predict"):
             predict = sqrt_filter.predict_sqrt_factor if sq else ekf.predict
             filt = predict(filt, cfg, dt)
     filt = filt.replace(t=t.to(filt.t.dtype))
@@ -374,13 +383,13 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
         estate.prev_pyr, filt, img, cfg, cam, nis_of)
 
     if imu_batch is not None and cfg.triangulate_new_features:
-        with record_function("vio.depth_boot"):
+        with profiling.span("vio.depth_boot"):
             filt = _depth_bootstrap(filt, cfg, cam, measured_uv, passed, dt,
                                     frame_qt)
 
     # --- update, then failed features free their slots
     # (TightlyCoupledEKF.cpp:525-529)
-    with record_function("vio.update"):
+    with profiling.span("vio.update"):
         meas_cov = _measurement_covariance(cfg, cam, estate.prev_pyr[0],
                                            cur_pyr[0], prev_px, res.points)
         innov = ekf.innovation_stats(filt, measured_uv, passed)
@@ -389,6 +398,7 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
                   else ekf.update_with_feature_positions)
         filt = update(filt, cfg, measured_uv, meas_cov, passed)
         num_tracked = torch.sum(passed & filt.active, dtype=torch.int32)
+        profiling.count("tracked", num_tracked)
         drop = sqrt_filter.drop_features_factor if sq else ekf.drop_features
         filt = drop(filt, filt.active & ~passed)
 
@@ -396,12 +406,13 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
     lost = ((num_tracked < cfg.minimum_trackable_features)
             | ~torch.isfinite(filt.base_mu).all()
             | ~torch.isfinite(_filter_sigma_diag(filt, cfg)).all())
+    profiling.count("lost", lost)
     if cfg.recover_on_tracking_lost:
         filt = _recover_tracking_lost(filt, cfg, lost)
         new_lin_base = torch.where(lost, filt.base_mu, new_lin_base)
 
     # --- replenish (EKFVIO.cpp:224-311)
-    with record_function("vio.replenish"):
+    with profiling.span("vio.replenish"):
         cand_px, cand_valid, cand_uv = _replenish_candidates(img, filt, cfg,
                                                              cam)
         depths = depth_vars = None
@@ -412,8 +423,10 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
                 filt, cfg, cam, estate.prev_pyr, cur_pyr, cand_px, cand_uv,
                 cand_valid, dt)
         add = sqrt_filter.add_features_factor if sq else ekf.add_features
+        live = filt.active
         filt = add(filt, cfg, cand_uv, cand_valid, depths=depths,
                    depth_vars=depth_vars)
+        profiling.count("added", live, filt.active)  # live ⊆ active
 
     if sq:
         L3 = filt.Sigma[:3, :]
@@ -450,6 +463,7 @@ def run_sequence(images, times, cfg: VIOConfig, cam: Camera,
                      estate, (images[1:], times[1:]))
 
 
+@profiling.framed("vio.init")
 def initialize_imu(images, times, imu_dt, imu_gyro, imu_accel, gravity_w,
                    cfg: VIOConfig, cam: Camera, init_frames: int,
                    device="cuda") -> EngineState:

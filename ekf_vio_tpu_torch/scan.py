@@ -26,8 +26,11 @@ and returns (final carry, the ys stacked on a new leading axis), as
   its own, written by the replays and aliased by nothing.
 
 A replay runs no host code, so the kernels count their own launches on
-the card (``csrc/launch_count.cuh``).  ``last`` holds the host seconds
-of the last capture and the number of replays.
+the card (``csrc/launch_count.cuh``) and, with the recorder of
+``utils/profiling.py`` on, the captured step stamps its ``vio.*`` spans
+and counts into the recorder's ring on the card (``csrc/stamp.cu``), once
+a replay.  ``last`` holds the host seconds of the last capture and the
+number of replays.
 
 ``graphed(fn)`` is the counterpart of ``jax.jit`` for a function called
 once a frame from a host loop (the CLI's streaming step, the batched
@@ -35,7 +38,12 @@ filter step): on CUDA tensors its first call for each shape runs eagerly
 and captures ``fn`` on static copies of the arguments, a Python float
 (the batched step's ``dt``) as a 0-d tensor, as ``jax.jit`` traces it;
 later calls copy their arguments in, replay and return a copy of the
-outputs.
+outputs.  With the recorder on, a call records the host spans
+``graphed.call`` (children ``graphed.copy_in``, ``graphed.launch``: the
+replay, ``graphed.copy_out``: the clones) and ``graphed.capture`` on a
+miss, and ``scan`` records ``scan.capture``; whether the recorder is on
+is part of a graph's key, so turning it on captures a stamped graph once
+and the plain one replays unchanged with it off.
 """
 from __future__ import annotations
 
@@ -44,6 +52,8 @@ import time
 import torch
 from torch import Tensor
 from torch.utils import _pytree
+
+from ekf_vio_tpu_torch.utils import profiling
 
 # the host seconds of the last capture, and the replays that followed it
 last = {"capture_s": 0.0, "replays": 0}
@@ -63,6 +73,17 @@ def _capture(fn):
         fn()
     last["capture_s"] = time.perf_counter() - t0
     return graph
+
+
+def _capture_recorded(fn, rec, name: str):
+    """``_capture(fn)`` in the host span ``name`` of the recorder ``rec``
+    (None: off), and the recorder's frames the graph holds."""
+    if rec is None:
+        return _capture(fn), 0
+    before = rec.captured
+    with rec.span(name):
+        graph = _capture(fn)
+    return graph, rec.captured - before
 
 
 def _at(xs, i):
@@ -132,9 +153,12 @@ def _scan_graphed(body, carry, xs, length):
             buf.index_copy_(0, idx, v[None])
         idx.add_(1)
 
-    graph = _capture(iteration)
+    rec = profiling.active()
+    graph, frames = _capture_recorded(iteration, rec, "scan.capture")
     for _ in range(n - 1):
         graph.replay()
+    if rec is not None:
+        rec.replayed(frames * (n - 1))
     last["replays"] = n - 1
     return (_pytree.tree_unflatten(static, c_spec),
             _pytree.tree_unflatten(ys, y_spec))
@@ -160,32 +184,63 @@ def graphed(fn):
     On CPU tensors ``fn`` itself."""
     cache = {}
 
-    def call(*args):
-        if not _on_card(args):
-            return fn(*args)
-        leaves, spec = _pytree.tree_flatten(args)
-        key = (str(spec), tuple(map(_signature, leaves)))
-        entry = cache.get(key)
-        if entry is None:
-            out = fn(*args)  # eager: warm-up and this call's result
-            dev = next(x.device for x in leaves if isinstance(x, Tensor))
-            static_in = [
-                x.clone() if isinstance(x, Tensor)
-                else torch.full((), x, dtype=torch.float64, device=dev)
-                if type(x) is float else x for x in leaves]
-            held = {}
+    def miss(key, args, leaves, spec, rec):
+        # a stamped graph of a recorder that is off now never replays
+        # again: drop it, with the private pool and the ring it holds
+        for k in [k for k in cache if k[-1] not in (None, rec)]:
+            del cache[k]
+        out = fn(*args)  # eager: warm-up and this call's result
+        dev = next(x.device for x in leaves if isinstance(x, Tensor))
+        static_in = [
+            x.clone() if isinstance(x, Tensor)
+            else torch.full((), x, dtype=torch.float64, device=dev)
+            if type(x) is float else x for x in leaves]
+        held = {}
 
-            def once():
-                held["out"] = fn(*_pytree.tree_unflatten(static_in, spec))
+        def once():
+            held["out"] = fn(*_pytree.tree_unflatten(static_in, spec))
 
-            cache[key] = (_capture(once), static_in, held)
-            return out
-        graph, static_in, held = entry
+        graph, frames = _capture_recorded(once, rec, "graphed.capture")
+        cache[key] = (graph, static_in, held, frames)
+        return out
+
+    def copy_in(static_in, leaves):
         for s, x in zip(static_in, leaves):
             if isinstance(x, Tensor):
                 s.copy_(x)
             elif type(x) is float:
                 s.fill_(x)
+
+    def recorded(rec, key, args, leaves, spec):
+        with rec.span("graphed.call"):
+            entry = cache.get(key)
+            if entry is None:
+                return miss(key, args, leaves, spec, rec)
+            graph, static_in, held, frames = entry
+            with rec.span("graphed.copy_in"):
+                copy_in(static_in, leaves)
+            with rec.span("graphed.launch"):
+                graph.replay()
+                rec.replayed(frames)
+            with rec.span("graphed.copy_out"):
+                return _pytree.tree_map(torch.clone, held["out"])
+
+    def call(*args):
+        if not _on_card(args):
+            return fn(*args)
+        rec = profiling.active()
+        leaves, spec = _pytree.tree_flatten(args)
+        # the recorder (None: off) keys its own stamped graph, which holds
+        # pointers into its ring, and keeps it alive until the next miss
+        # under another recorder
+        key = (str(spec), tuple(map(_signature, leaves)), rec)
+        if rec is not None:
+            return recorded(rec, key, args, leaves, spec)
+        entry = cache.get(key)
+        if entry is None:
+            return miss(key, args, leaves, spec, None)
+        graph, static_in, held, _ = entry
+        copy_in(static_in, leaves)
         graph.replay()
         return _pytree.tree_map(torch.clone, held["out"])
 

@@ -379,7 +379,7 @@ def test_graphed_step_takes_a_python_float_as_an_input(stand_in,
 CSRC = Path(__file__).resolve().parent.parent / "ekf_vio_tpu_torch" / "csrc"
 
 
-@pytest.mark.parametrize("name", ("lk_level", "fast9", "klt_level"))
+@pytest.mark.parametrize("name", ("lk_level", "fast9", "klt_level", "stamp"))
 def test_every_kernel_counts_its_own_launches(name):
     """A replay runs no host code, so each ``__global__`` kernel of the
     library counts its launch on the card: ``count_launch()``
