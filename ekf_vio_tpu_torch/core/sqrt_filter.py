@@ -32,6 +32,15 @@ with no host read, so the update's finiteness guard skips the update.
 Callers keep TF32 off (``engine.use_f32_matmul``): ``F @ L`` and
 ``K @ HL`` need true f32.  ``predict_sqrt`` / ``update_sqrt`` are the
 dense-boundary wrappers (factor on entry, square on exit).
+
+Each triangularization runs in a span of the recorder
+(``utils/profiling.py``), ``vio.tria.<role>``: ``imu`` (the compound IMU
+propagation), ``predict`` (the random-walk process), ``update`` (the
+array QR), ``posterior`` (the Joseph re-triangularization) and ``wipe``
+(a slot add or a depth re-prime).  The update counts ``skipped``: an
+update that a failed factorization or a non-finite gain left as
+predicted.  With no recorder on a span is a ``record_function`` range and
+the count computes nothing, so a captured step gains no node.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from ekf_vio_tpu_torch.core import dynamics
 from ekf_vio_tpu_torch.core import imu as imu_mod
 from ekf_vio_tpu_torch.core import state as state_mod
 from ekf_vio_tpu_torch.core.state import FilterState
+from ekf_vio_tpu_torch.utils import profiling
 
 
 def _chol_nan(A: torch.Tensor) -> torch.Tensor:
@@ -59,11 +69,17 @@ def _stabilized_chol(Sigma: torch.Tensor):
     return _chol_nan(Sigma + torch.diag(pad)), pad
 
 
-def _tria(pre_T: torch.Tensor) -> torch.Tensor:
+def _qr_r(pre_T: torch.Tensor, role: str) -> torch.Tensor:
+    """R of the QR of ``pre_T``, in the span ``vio.tria.<role>``."""
+    with profiling.span("vio.tria." + role):
+        return torch.linalg.qr(pre_T, mode="r").R
+
+
+def _tria(pre_T: torch.Tensor, role: str) -> torch.Tensor:
     """Lower-triangular factor of pre_Tᵀ·pre_T via one QR (pre_T: [M, D]),
     with the diagonal sign-normalized nonnegative (a zero diagonal entry
     keeps its row: sign 0 counts as +1)."""
-    R = torch.linalg.qr(pre_T, mode="r").R
+    R = _qr_r(pre_T, role)
     s = torch.sign(torch.diagonal(R))
     s = torch.where(s == 0, 1.0, s)
     return (R * s[:, None]).T
@@ -103,7 +119,7 @@ def wipe_rows_factor(L: torch.Tensor, wipe: torch.Tensor,
     add = torch.diag(torch.where(w > 0.0,
                                  torch.sqrt(torch.clamp(new_diag, min=0.0)),
                                  0.0).to(L.dtype))
-    return _tria(torch.cat([L1.T, add], 0))
+    return _tria(torch.cat([L1.T, add], 0), "wipe")
 
 
 def predict_sqrt_factor(state: FilterState, cfg: VIOConfig,
@@ -120,8 +136,8 @@ def predict_sqrt_factor(state: FilterState, cfg: VIOConfig,
                                          cfg).to(state.Sigma.dtype)
     F = dynamics.build_dense_F(Fb, Ffb, Ff)
     A = torch.cat([(F @ state.Sigma).T, torch.diag(torch.sqrt(q_diag))], 0)
-    return state.replace(base_mu=base_mu, feat_mu=feat_mu, Sigma=_tria(A),
-                         t=state.t + dt)
+    return state.replace(base_mu=base_mu, feat_mu=feat_mu,
+                         Sigma=_tria(A, "predict"), t=state.t + dt)
 
 
 def propagate_imu_factor(state: FilterState, cfg: VIOConfig,
@@ -161,8 +177,8 @@ def propagate_imu_factor(state: FilterState, cfg: VIOConfig,
     A = torch.cat([(F @ state.Sigma).T, TC.T,
                    torch.diag(torch.sqrt(q_diag))], 0)
     feat_mu = torch.where(state.active[:, None], new_feat, state.feat_mu)
-    return state.replace(base_mu=base_mu, feat_mu=feat_mu, Sigma=_tria(A),
-                         t=state.t + total_dt), qt
+    return state.replace(base_mu=base_mu, feat_mu=feat_mu,
+                         Sigma=_tria(A, "imu"), t=state.t + total_dt), qt
 
 
 def update_sqrt_factor(state: FilterState, cfg: VIOConfig,
@@ -172,7 +188,7 @@ def update_sqrt_factor(state: FilterState, cfg: VIOConfig,
                        ) -> FilterState:
     """Factor-native masked QR-array measurement update (state.Sigma holds
     L in and out).  A failed factorization or a non-finite gain leaves the
-    state as predicted."""
+    state as predicted, and is counted as ``skipped``."""
     n = state.n_max
     d = state.state_dim
     dtype, dev = state.Sigma.dtype, state.device
@@ -200,7 +216,7 @@ def update_sqrt_factor(state: FilterState, cfg: VIOConfig,
     pre_T = torch.cat([
         torch.cat([Rc.T, torch.zeros(two_n, d, dtype=dtype, device=dev)], 1),
         torch.cat([HL.T, L.T], 1)], 0)
-    post = torch.linalg.qr(pre_T, mode="r").R.T
+    post = _qr_r(pre_T, "update").T
     Sc = post[:two_n, :two_n]          # chol(HΣHᵀ + R + λ)
     G = post[two_n:, :two_n]           # ΣHᵀ Sc⁻ᵀ
 
@@ -208,6 +224,7 @@ def update_sqrt_factor(state: FilterState, cfg: VIOConfig,
     e = torch.linalg.solve_triangular(Sc, y[:, None], upper=False)[:, 0]
     K = torch.linalg.solve_triangular(Sc.T, G.T, upper=True).T    # [D, 2N]
     ok = torch.isfinite(e).all() & torch.isfinite(K).all()
+    profiling.count("skipped", ok, True)   # ok ^ True: skipped
     e = torch.where(ok, e, 0.0)
     K = torch.where(ok, K, 0.0)
     G = torch.where(ok, G, 0.0)
@@ -217,7 +234,8 @@ def update_sqrt_factor(state: FilterState, cfg: VIOConfig,
     # posterior: Joseph-exact triangularization for this gain with the
     # true (un-inflated) R
     Rc_true = state_mod.block_diag(_chol_nan(meas_cov + 1e-30 * eye2)) * mm
-    Lp = _tria(torch.cat([(L - K @ HL).T, (K @ Rc_true).T], 0))
+    Lp = _tria(torch.cat([(L - K @ HL).T, (K @ Rc_true).T], 0),
+               "posterior")
     Lp = torch.where(ok, Lp, state.Sigma)
 
     quat = mu[3:7] / torch.linalg.vector_norm(mu[3:7])

@@ -27,7 +27,8 @@ the tracked, gated, added and lost features where they are decided.  With
 ``VIOConfig.square_root_form`` the state's ``Sigma`` field holds the lower
 Cholesky factor L across frames (core/sqrt_filter.py): factored once at
 initialization, then predict, update, drop, add and the depth bootstrap
-all act on L.
+all act on L, each QR triangularization in a ``vio.tria.<role>`` span
+inside its layer's, and the update counts the ``skipped`` ones.
 """
 from __future__ import annotations
 

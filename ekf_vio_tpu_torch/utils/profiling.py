@@ -27,8 +27,9 @@ inside a captured CUDA graph (``scan.py``), where no host code runs:
   A step counter on the card advances once a frame, inside the graph.
 * ``count(name, x)`` writes the number of true entries of ``x`` (its sum)
   into the frame's row, ``count(name, x, y)`` the number of entries where
-  the masks ``x`` and ``y`` differ: tracked, gated, added, lost.  The
-  arithmetic runs only with a recorder on.
+  the masks ``x`` and ``y`` differ (``y`` may be a Python bool: ``True``
+  counts the false entries of ``x``): tracked, gated, added, lost,
+  skipped.  The arithmetic runs only with a recorder on.
 * ``enable`` / ``disable`` / ``recording`` turn the process's recorder on
   and off; ``flush()`` copies the ring to the host once and returns the
   spans and counts since the last flush (``Trace``).
@@ -401,7 +402,8 @@ class Recorder:
             if rec.frame < 0 and self.frames > frames_before:
                 rec.frame = self.frames   # the (last) frame run inside it
 
-    def count(self, name: str, x: Tensor, y: Tensor | None = None) -> None:
+    def count(self, name: str, x: Tensor,
+              y: Tensor | bool | None = None) -> None:
         """The number of true entries (the sum) of ``x``, or with ``y`` of
         ``x ^ y``, into the open frame's row; outside a frame nothing.  A
         0-d ``x`` is written as it is (no op of its own); a mask costs its
@@ -525,15 +527,16 @@ def framed(name: str):
     return wrap
 
 
-def count_value(x: Tensor, y: Tensor | None = None) -> Tensor:
+def count_value(x: Tensor, y: Tensor | bool | None = None) -> Tensor:
     """What a count writes: a 0-d ``x`` as it is, else the number of true
-    entries of ``x`` (or of ``x ^ y``) as an int64 0-d tensor."""
+    entries of ``x`` (or of ``x ^ y``; ``y`` a mask or a bool) as an int64
+    0-d tensor."""
     if y is not None:
         x = x ^ y
     return x.sum(dtype=torch.int64) if x.dim() else x
 
 
-def count(name: str, x: Tensor, y: Tensor | None = None) -> None:
+def count(name: str, x: Tensor, y: Tensor | bool | None = None) -> None:
     """``Recorder.count`` on the recorder that is on; nothing otherwise,
     so pass the masks and not an expression of them: a caller's ``a ^ b``
     would run with the recorder off too."""

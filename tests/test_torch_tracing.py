@@ -12,7 +12,11 @@ On the CPU (the stamps' CPU kernel writes the host clock):
   state with it on and off;
 * the counts equal ``num_tracked``, the lost flag and the slots the step
   filled, computed from the step's own outputs; the gated count is what
-  the χ² gate removed;
+  the χ² gate removed; ``skipped`` counts an update in square-root form
+  that a failed factorization left as predicted;
+* in square-root form each QR triangularization is a ``vio.tria.<role>``
+  span inside its layer's, in step order, eager and replayed; with the
+  recorder off the step runs the same ops as with those spans taken out;
 * ``flush`` after the ring wrapped keeps the last frames and reports the
   overwritten ones;
 * in one ``torch.profiler`` profile, a program span and a
@@ -27,7 +31,10 @@ within 10 µs of the profiler's device ops of their layer, once the
 profiler's own drifting conversion is fitted out; the stamps' offset to the
 host clock steady over a second; the recorder-off graph holds the nodes it held
 before the recorder (a fixed count) and no stamp node, and the stamped
-graph one more node per ring write and the counts' own ops.
+graph one more node per ring write and the counts' own ops; the
+square-root-form graph of the 128-slot test step holds as many nodes with
+the recorder off as with its ``vio.tria.*`` spans taken out, and its
+stamped replay the ``vio.tria.*`` stamps in step order.
 """
 import json
 from pathlib import Path
@@ -39,7 +46,7 @@ from torch.utils import _pytree
 
 from ekf_vio_tpu_torch import engine, scan
 from ekf_vio_tpu_torch.config import VIOConfig
-from ekf_vio_tpu_torch.core import imu
+from ekf_vio_tpu_torch.core import imu, sqrt_filter
 from ekf_vio_tpu_torch.frontend import camera
 from ekf_vio_tpu_torch.frontend.camera import Camera
 from ekf_vio_tpu_torch.parallel import batched_engine
@@ -55,7 +62,14 @@ BENCH = VIOConfig(max_features=32, min_new_feature_dist=8.0,
 MONO = VIOConfig.from_yaml(
     Path(__file__).resolve().parent.parent / "configs" / "mono_inertial.yaml"
 ).replace(max_features=32)
+SQRT = MONO.replace(square_root_form=True)
 LAYERS = ("vio.pyramid", "vio.track", "vio.update", "vio.replenish")
+# a factor-form IMU step's spans in step order (each vio.tria.* inside the
+# layer span before it)
+SQRT_SPANS = ("vio.step", "vio.imu", "vio.tria.imu", "vio.pyramid",
+              "vio.track", "vio.depth_boot", "vio.tria.wipe", "vio.update",
+              "vio.tria.update", "vio.tria.posterior", "vio.replenish",
+              "vio.tria.wipe")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -104,14 +118,14 @@ def _vision_steps(bench, cfg=BENCH, n=3, device="cpu"):
     return states, outs
 
 
-def _imu_steps(seq, n=2):
-    es = engine.initialize(seq["frames"][0], seq["times"][0], MONO, CAM,
+def _imu_steps(seq, n=2, cfg=MONO):
+    es = engine.initialize(seq["frames"][0], seq["times"][0], cfg, CAM,
                            device="cpu")
     states, outs = [es], []
     for i in range(1, n + 1):
         batch = imu.ImuSample(seq["imu_dt"][i - 1], seq["imu_gyro"][i - 1],
                               seq["imu_accel"][i - 1])
-        es, out = engine.step(es, seq["frames"][i], seq["times"][i], MONO,
+        es, out = engine.step(es, seq["frames"][i], seq["times"][i], cfg,
                               CAM, imu_batch=batch,
                               gravity_w=seq["gravity_w"])
         states.append(es)
@@ -246,12 +260,13 @@ def test_off_counts_compute_nothing(bench):
     assert on.seen["bitwise_xor"] == 2
 
 
-@pytest.mark.parametrize("path", ("vision", "imu", "batched"))
+@pytest.mark.parametrize("path", ("vision", "imu", "batched", "sqrt_imu"))
 def test_steps_are_bitwise_equal_with_the_recorder_on_and_off(path, bench,
                                                               seq):
     run = {"vision": lambda: _vision_steps(bench, n=3),
            "imu": lambda: _imu_steps(seq, n=2),
-           "batched": lambda: _batched_steps(bench)}[path]
+           "batched": lambda: _batched_steps(bench),
+           "sqrt_imu": lambda: _imu_steps(seq, n=2, cfg=SQRT)}[path]
     off = run()
     with profiling.recording() as rec:
         on = run()
@@ -361,17 +376,23 @@ def _counts(tr, frame):
     return {c.name: c.value for c in tr.counts if c.frame == frame}
 
 
-@pytest.mark.parametrize("path", ("vision", "imu", "batched"))
+@pytest.mark.parametrize("path", ("vision", "imu", "batched", "sqrt_imu"))
 def test_counts_equal_what_the_outputs_say(path, bench, seq):
     run = {"vision": lambda: _vision_steps(bench, n=3),
            "imu": lambda: _imu_steps(seq, n=2),
-           "batched": lambda: _batched_steps(bench)}[path]
+           "batched": lambda: _batched_steps(bench),
+           "sqrt_imu": lambda: _imu_steps(seq, n=2, cfg=SQRT)}[path]
     with profiling.recording() as rec:
         states, outs = run()
         tr = rec.flush()
     for k, (es, out) in enumerate(zip(states[1:], outs)):
         got = _counts(tr, k + 2)
-        assert set(got) == {"tracked", "lost", "added"}
+        # a factor-form update also counts whether it was skipped: never
+        # on these frames
+        sq = path.startswith("sqrt")
+        assert set(got) == {"tracked", "lost", "added"} | (
+            {"skipped"} if sq else set())
+        assert got.get("skipped", 0) == 0
         # summed over the lanes of a batched step
         assert got["tracked"] == int(out.num_tracked.sum())
         assert got["lost"] == int(out.tracking_lost.sum())
@@ -392,6 +413,103 @@ def test_gated_counts_what_the_gates_removed(bench):
     assert tracked["open"]["gated"] == 0 and tracked["open"]["tracked"] > 0
     assert tracked["shut"]["tracked"] == 0
     assert tracked["shut"]["gated"] == tracked["open"]["tracked"]
+
+
+@pytest.mark.parametrize("planted", (False, True))
+def test_skipped_counts_a_failed_factorization(planted, seq):
+    """A factor-form update whose measurement covariance cannot be
+    factored (a NaN planted in one measured feature's R) leaves the state
+    as predicted and counts one ``skipped``; a clean one counts none."""
+    es = _imu_steps(seq, n=1, cfg=SQRT)[0][-1]
+    f = es.filt
+    uv = f.feat_mu[:, :2] + 1e-3
+    cov = torch.eye(2).expand(f.n_max, 2, 2) * 1e-5
+    if planted:
+        cov = cov.clone()
+        cov[int(torch.nonzero(f.active)[0, 0])] = torch.nan
+    with profiling.recording() as rec:
+        with profiling.frame("f"):
+            got = sqrt_filter.update_sqrt_factor(f, SQRT, uv, cov, f.active)
+        tr = rec.flush()
+    assert [(c.name, c.value) for c in tr.counts] == [("skipped", int(planted))]
+    assert torch.equal(got.Sigma, f.Sigma) == planted
+
+
+def _tria_tree(spans, frame):
+    """(name, parent's name) of a frame's spans, in the order they began."""
+    got = sorted((s for s in spans if s.frame == frame),
+                 key=lambda s: s.start_ns)
+    return [(s.name, spans[s.parent].name if s.parent >= 0 else None)
+            for s in got]
+
+
+# each vio.tria.* span's layer in a factor-form IMU step
+TRIA_PARENTS = [("vio.tria.imu", "vio.imu"), ("vio.tria.wipe", "vio.depth_boot"),
+                ("vio.tria.update", "vio.update"),
+                ("vio.tria.posterior", "vio.update"),
+                ("vio.tria.wipe", "vio.replenish")]
+
+
+@pytest.mark.parametrize("run", ("eager", "graphed"))
+def test_a_factor_step_stamps_its_triangularizations(run, seq, stand_in):
+    """In square-root form every QR is a ``vio.tria.<role>`` span inside
+    its layer's, in step order, from host spans and from the stamps, of an
+    eager step and of a replayed one (``scan.graphed`` on the stand-in
+    graph, whose replay runs the captured step)."""
+    es = _imu_steps(seq, n=0, cfg=SQRT)[0][0]
+    g = seq["gravity_w"]
+    body = engine.imu_step_body(SQRT, CAM, g)
+    step = (scan.graphed(lambda e, *x: body(e, x)) if run == "graphed"
+            else lambda e, *x: body(e, x))
+
+    def x(i):
+        return (seq["frames"][i], seq["times"][i], seq["imu_dt"][i - 1],
+                seq["imu_gyro"][i - 1], seq["imu_accel"][i - 1])
+
+    with profiling.recording() as rec:
+        es1, _ = step(es, *x(1))           # eager (and, graphed, captured)
+        step(es1, *x(2))                   # graphed: a replay
+        tr = rec.flush()
+    last = max(s.frame for s in tr.device)
+    for spans in (tr.host, tr.device):
+        tree = [t for t in _tria_tree(spans, last)
+                if t[0].startswith("vio.") and t[0] != "vio.gates"]
+        assert [n for n, _ in tree] == list(SQRT_SPANS)
+        assert [t for t in tree if t[0].startswith("vio.tria.")] == TRIA_PARENTS
+    if run == "graphed":
+        assert stand_in[0].replays == 1
+
+
+def _aten_ops(fn):
+    """Names of the ops ``fn()`` dispatches, the profiler's own left out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace != "profiler":
+                self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as ops:
+        fn()
+    return ops.seen
+
+
+def test_off_factor_step_runs_the_ops_it_runs_without_its_spans(seq,
+                                                                monkeypatch):
+    """With the recorder off the ``vio.tria.*`` spans and the ``skipped``
+    count add no op to a factor-form step: the same ops, in the same
+    order, as with the spans taken out (a plain QR for ``_qr_r``)."""
+    with_spans = _aten_ops(lambda: _imu_steps(seq, n=1, cfg=SQRT))
+    monkeypatch.setattr(sqrt_filter, "_qr_r",
+                        lambda pre_T, role: torch.linalg.qr(pre_T,
+                                                            mode="r").R)
+    without = _aten_ops(lambda: _imu_steps(seq, n=1, cfg=SQRT))
+    assert with_spans == without and len(without) > 100
 
 
 # --------------------------------------------------------------------------
@@ -692,3 +810,46 @@ class TestOnCard:
         assert sum("ring_write" in n for n in on) == _ring_writes(rec)
         assert len(on) - len(off) == (_ring_writes(rec)
                                       + _count_ops(rec, cuda))
+
+    def test_off_factor_graph_has_the_nodes_it_has_without_its_spans(
+            self, cuda, seq, monkeypatch):
+        """The factor-form 128-slot test step (IMU, depth bootstrap): one
+        replay of its recorder-off graph runs as many device ops as the
+        graph captured with the ``vio.tria.*`` spans taken out, and no
+        stamp; the stamped replay stamps the spans in step order."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cfg = SQRT.replace(max_features=128)
+        d = {k: v.to(cuda) for k, v in seq.items()}
+        body = engine.imu_step_body(cfg, CAM, d["gravity_w"])
+        x = (d["frames"][1], d["times"][1], d["imu_dt"][0], d["imu_gyro"][0],
+             d["imu_accel"][0])
+        es0 = engine.initialize(d["frames"][0], d["times"][0], cfg, CAM)
+
+        def replay_ops():
+            step = scan.graphed(lambda e, *a: body(e, a))
+            step(es0, *x)                                # eager + capture
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(es0, *x)
+                torch.cuda.synchronize()
+            return _device_ops(prof)
+
+        off = replay_ops()
+        with profiling.recording(cuda) as rec:
+            on = replay_ops()
+            tr = rec.flush()
+        with monkeypatch.context() as m:
+            m.setattr(sqrt_filter, "_qr_r",
+                      lambda pre_T, role: torch.linalg.qr(pre_T, mode="r").R)
+            plain = replay_ops()
+        print(f"factor-form step: {len(off)} ops off, {len(plain)} without "
+              f"the spans, {len(on)} stamped")
+        assert len(off) == len(plain)
+        assert not any("ring_write" in n for n in off)
+        last = max(s.frame for s in tr.device)
+        tree = [t for t in _tria_tree(tr.device, last)
+                if t[0] != "vio.gates"]
+        assert [n for n, _ in tree] == list(SQRT_SPANS)
+        assert [t for t in tree if t[0].startswith("vio.tria.")] == TRIA_PARENTS
