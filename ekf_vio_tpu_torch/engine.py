@@ -25,10 +25,15 @@ compiled rollout is measured too.  A step is a ``vio.step`` frame and an
 initialization a ``vio.init`` frame of the recorder, which also counts
 the tracked, gated, added and lost features where they are decided.  With
 ``VIOConfig.square_root_form`` the state's ``Sigma`` field holds the lower
-Cholesky factor L across frames (core/sqrt_filter.py): factored once at
-initialization, then predict, update, drop, add and the depth bootstrap
-all act on L, each QR triangularization in a ``vio.tria.<role>`` span
-inside its layer's, and the update counts the ``skipped`` ones.
+Cholesky factor L across frames (core/sqrt_filter.py), factored once at
+initialization.  Inside a step it holds a non-square factor F of the same
+Σ = F Fᵀ: the IMU propagation (or the predict) appends its noise columns
+with no QR, the depth bootstrap zeroes the booted ρ rows and appends one
+column a slot, the update triangularizes its array (``vio.tria.update``)
+and carries the Joseph posterior as columns, drops and the lost reset act
+on F's rows, the slot add appends its prior, and one QR at the end of
+``vio.replenish`` (``vio.tria.close``) makes the step's factor square
+lower-triangular again; the update counts the ``skipped`` ones.
 """
 from __future__ import annotations
 
@@ -185,14 +190,17 @@ def _depth_bootstrap(filt: ekf.FilterState, cfg: VIOConfig, cam: Camera,
                      measured_uv, passed, dt, frame_qt) -> ekf.FilterState:
     """IMU-mode depth bootstrap: the booted features (``_depth_boot_select``)
     get ρ and its variance re-initialized; the ρ row and column of Σ are
-    wiped first (in factor form by one re-triangularization)."""
+    wiped first (in factor form on the carried factor: the booted ρ rows
+    zeroed, one column a slot appended, no QR)."""
     boot, sig_tri, rho = _depth_boot_select(filt, cfg, cam, measured_uv,
                                             passed, dt, frame_qt)
     n, dtype = filt.n_max, filt.Sigma.dtype
     if cfg.square_root_form:
-        Sigma = sqrt_filter.wipe_rows_factor(
+        rho_rows = (BASE_STATE_SIZE + 2
+                    + 3 * torch.arange(n, device=filt.device))
+        Sigma = sqrt_filter.wipe_rows_array(
             filt.Sigma, _rho_vec(boot.to(dtype), n),
-            _rho_vec((sig_tri * sig_tri).to(dtype), n))
+            _rho_vec((sig_tri * sig_tri).to(dtype), n), rows=rho_rows)
     else:
         keep = 1.0 - _rho_vec(boot.to(dtype), n)
         Sigma = filt.Sigma * (keep[:, None] * keep[None, :])
@@ -324,10 +332,14 @@ def _recover_tracking_lost(filt: ekf.FilterState, cfg: VIOConfig,
         _recovered_base_variances(_filter_sigma_diag(filt, cfg), cfg),
         torch.zeros(3 * n, dtype=dtype, device=dev),
     ])
-    # diag(σ²) in covariance form; its own Cholesky factor diag(σ) in
-    # factor form
-    new_sigma = torch.diag(torch.sqrt(sig_diag) if cfg.square_root_form
-                           else sig_diag)
+    if cfg.square_root_form:
+        # its own factor diag(σ), zero columns padding it to the width of
+        # the factor the step carries
+        new_sigma = torch.nn.functional.pad(
+            torch.diag(torch.sqrt(sig_diag)),
+            (0, filt.Sigma.shape[1] - filt.state_dim))
+    else:
+        new_sigma = torch.diag(sig_diag)
     rec = filt.replace(base_mu=base,
                        active=torch.zeros_like(filt.active),
                        Sigma=new_sigma,
@@ -343,8 +355,10 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
     """One frame (steady-state branch of addFrame, EKFVIO.cpp:154-173) on
     the state's device.  With ``imu_batch`` (this camera interval's
     samples) the predict is the IMU strapdown propagation; otherwise the
-    vision-driven random-walk process.  Returns (EngineState, outputs)."""
-    sq = cfg.square_root_form  # factor-native mode: filt.Sigma holds L
+    vision-driven random-walk process.  Returns (EngineState, outputs).
+    In factor form ``filt.Sigma`` holds L at both ends and a carried
+    factor F in between (module docstring)."""
+    sq = cfg.square_root_form
     filt = estate.filt
     dev = filt.device
     img = _f32(img, dev)
@@ -361,13 +375,13 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
             # appended as a zero-order-hold sample (dt = 0: a no-op)
             rem = torch.clamp(t - (filt.t + torch.sum(imu_batch.dt)), min=0.0)
             batch = imu_mod.extend_batch_with_remainder(imu_batch, rem)
-            propagate = (sqrt_filter.propagate_imu_factor if sq
+            propagate = (sqrt_filter.propagate_imu_array if sq
                          else imu_mod.propagate_imu_batch_with_motion)
             filt, frame_qt = propagate(filt, cfg, batch, gravity_w,
                                        lin_base=lin)
     else:
         with profiling.span("vio.predict"):
-            predict = sqrt_filter.predict_sqrt_factor if sq else ekf.predict
+            predict = sqrt_filter.predict_sqrt_array if sq else ekf.predict
             filt = predict(filt, cfg, dt)
     filt = filt.replace(t=t.to(filt.t.dtype))
     new_lin_base = filt.base_mu  # FEJ anchor for the next interval
@@ -395,9 +409,12 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
                                            cur_pyr[0], prev_px, res.points)
         innov = ekf.innovation_stats(filt, measured_uv, passed)
         nis = innovation_nis(filt, measured_uv, meas_cov, passed, factor=sq)
-        update = (sqrt_filter.update_sqrt_factor if sq
-                  else ekf.update_with_feature_positions)
-        filt = update(filt, cfg, measured_uv, meas_cov, passed)
+        if sq:
+            filt, _ = sqrt_filter.update_sqrt_array(filt, cfg, measured_uv,
+                                                    meas_cov, passed)
+        else:
+            filt = ekf.update_with_feature_positions(filt, cfg, measured_uv,
+                                                     meas_cov, passed)
         num_tracked = torch.sum(passed & filt.active, dtype=torch.int32)
         profiling.count("tracked", num_tracked)
         drop = sqrt_filter.drop_features_factor if sq else ekf.drop_features
@@ -423,10 +440,18 @@ def step(estate: EngineState, img, t, cfg: VIOConfig, cam: Camera,
             depths, depth_vars = _two_view_depths(
                 filt, cfg, cam, estate.prev_pyr, cur_pyr, cand_px, cand_uv,
                 cand_valid, dt)
-        add = sqrt_filter.add_features_factor if sq else ekf.add_features
         live = filt.active
-        filt = add(filt, cfg, cand_uv, cand_valid, depths=depths,
-                   depth_vars=depth_vars)
+        if sq:
+            # replenish offers at most num_features − #active candidates
+            # (frontend/replenish.py; num_features <= max_features, config),
+            # so the prior's columns compact to 3·num_features
+            filt = sqrt_filter.add_features_array(
+                filt, cfg, cand_uv, cand_valid, depths=depths,
+                depth_vars=depth_vars, slots=cfg.num_features)
+            filt = sqrt_filter.triangularize(filt, "close")
+        else:
+            filt = ekf.add_features(filt, cfg, cand_uv, cand_valid,
+                                    depths=depths, depth_vars=depth_vars)
         profiling.count("added", live, filt.active)  # live ⊆ active
 
     if sq:

@@ -34,7 +34,9 @@ before the recorder (a fixed count) and no stamp node, and the stamped
 graph one more node per ring write and the counts' own ops; the
 square-root-form graph of the 128-slot test step holds as many nodes with
 the recorder off as with its ``vio.tria.*`` spans taken out, and its
-stamped replay the ``vio.tria.*`` stamps in step order.
+stamped replay the ``vio.tria.*`` stamps in step order; that step's
+``scan.graphed`` replays bitwise equal to the eager step, the state it hands
+on square lower-triangular.
 """
 import json
 from pathlib import Path
@@ -66,10 +68,9 @@ SQRT = MONO.replace(square_root_form=True)
 LAYERS = ("vio.pyramid", "vio.track", "vio.update", "vio.replenish")
 # a factor-form IMU step's spans in step order (each vio.tria.* inside the
 # layer span before it)
-SQRT_SPANS = ("vio.step", "vio.imu", "vio.tria.imu", "vio.pyramid",
-              "vio.track", "vio.depth_boot", "vio.tria.wipe", "vio.update",
-              "vio.tria.update", "vio.tria.posterior", "vio.replenish",
-              "vio.tria.wipe")
+SQRT_SPANS = ("vio.step", "vio.imu", "vio.pyramid", "vio.track",
+              "vio.depth_boot", "vio.update", "vio.tria.update",
+              "vio.replenish", "vio.tria.close")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -443,11 +444,11 @@ def _tria_tree(spans, frame):
             for s in got]
 
 
-# each vio.tria.* span's layer in a factor-form IMU step
-TRIA_PARENTS = [("vio.tria.imu", "vio.imu"), ("vio.tria.wipe", "vio.depth_boot"),
-                ("vio.tria.update", "vio.update"),
-                ("vio.tria.posterior", "vio.update"),
-                ("vio.tria.wipe", "vio.replenish")]
+# each vio.tria.* span's layer in a factor-form IMU step: the step
+# carries a non-square factor from the IMU propagation on, and runs two
+# QRs, the update array and the close that makes the factor square
+TRIA_PARENTS = [("vio.tria.update", "vio.update"),
+                ("vio.tria.close", "vio.replenish")]
 
 
 @pytest.mark.parametrize("run", ("eager", "graphed"))
@@ -853,3 +854,29 @@ class TestOnCard:
                 if t[0] != "vio.gates"]
         assert [n for n, _ in tree] == list(SQRT_SPANS)
         assert [t for t in tree if t[0].startswith("vio.tria.")] == TRIA_PARENTS
+
+    def test_graphed_factor_step_is_the_eager_step_bitwise(self, cuda, seq):
+        """The factor-form 128-slot test step (IMU, depth bootstrap, the
+        carried factor's two QRs, 790-1,503-row arrays at D = 406), two
+        frames: each replay of its ``scan.graphed`` capture equals the
+        eager step bitwise, and the state it hands on is square
+        lower-triangular."""
+        cfg = SQRT.replace(max_features=128)
+        d = {k: v.to(cuda) for k, v in seq.items()}
+        body = engine.imu_step_body(cfg, CAM, d["gravity_w"])
+
+        def x(i):
+            return (d["frames"][i], d["times"][i], d["imu_dt"][i - 1],
+                    d["imu_gyro"][i - 1], d["imu_accel"][i - 1])
+
+        es0 = engine.initialize(d["frames"][0], d["times"][0], cfg, CAM)
+        eager1 = body(es0, x(1))
+        eager2 = body(eager1[0], x(2))
+        step = scan.graphed(lambda e, *a: body(e, a))
+        step(es0, *x(1))                                 # eager + capture
+        got1 = step(es0, *x(1))
+        got2 = step(got1[0], *x(2))
+        _assert_bitwise(got1, eager1)
+        _assert_bitwise(got2, eager2)
+        L = got2[0].filt.Sigma
+        assert L.shape == (406, 406) and torch.equal(L, torch.tril(L))
