@@ -208,6 +208,7 @@ def _run_streaming(imgs, ts, cfg, cam, imu, insight_dir, log_every,
     import torch
 
     from ekf_vio_tpu_torch import engine
+    from ekf_vio_tpu_torch.core import filter as ekf
     from ekf_vio_tpu_torch.frontend import camera as cam_mod
     from ekf_vio_tpu_torch import scan
     from ekf_vio_tpu_torch.utils.profiling import FrameTimer
@@ -246,11 +247,9 @@ def _run_streaming(imgs, ts, cfg, cam, imu, insight_dir, log_every,
 
         filt = estate.filt
         feat_px = cam_mod.metric_to_pixel(cam, filt.feat_mu[:, :2])
-        # the factor form stores L; Σ = L Lᵀ
-        sigma = filt.Sigma @ filt.Sigma.T if cfg.square_root_form \
-            else filt.Sigma
-        cov_px = insight.feature_pixel_covariances(sigma, cam.fx, cam.fy,
-                                                   cfg.max_features)
+        cov_px = insight.feature_pixel_covariances(
+            ekf.form_of(cfg).covariance(filt), cam.fx, cam.fy,
+            cfg.max_features)
         frame = insight.render_insight(imgs[i], feat_px, filt.active,
                                        feat_cov_px=cov_px)
         insight.write_png(os.path.join(insight_dir, f"{i:06d}.png"), frame)

@@ -13,9 +13,10 @@ space, so no cancellation-prone operation of the covariance form remains:
   that λ-damped factorization, and the posterior is Joseph-exact with the
   true R, [(I−KH)L | K·chol R], PSD by construction for any K.
 
-With ``VIOConfig.square_root_form`` the engine keeps the LOWER CHOLESKY
-FACTOR ``L`` in ``FilterState.Sigma`` across steps: factored once at
-initialization (``to_factor``) and never re-squared in the loop.
+With ``VIOConfig.square_root_form`` the engine's frame flow runs in
+``FactorForm``, which keeps the LOWER CHOLESKY FACTOR ``L`` in
+``FilterState.Sigma`` across steps: factored once at initialization
+(``to_factor``) and never re-squared in the loop.
 
 **The carried factor.**  Every change a step makes to Σ keeps Σ = F Fᵀ
 exact for a non-square F (``[D, C]``): a transform multiplies F, new
@@ -36,11 +37,12 @@ and ``triangularize`` makes it square lower-triangular again:
   a state row of a filled slot, compacted by the slot's rank
 * ``drop_features_factor``: zeroes rows, of L or of F
 
-``engine.step`` carries F from the IMU propagation (or the predict)
-through the depth re-prime, the update, the drops, the lost reset and the
-slot add, and runs two QRs a frame: the update array and one
-``triangularize`` at the end of ``vio.replenish`` (role ``close``).  The
-state at every step boundary is square lower-triangular.  The public
+``FactorForm`` carries F through a step of ``engine.step``, from the IMU
+propagation (or the predict) through the depth re-prime, the update, the
+drops, the lost reset and the slot add, and runs two QRs a frame: the
+update array and one ``triangularize`` at the end of its ``add``, in
+``vio.replenish`` (role ``close``).  The state at every step boundary is
+square lower-triangular.  The public
 ``predict_sqrt_factor``, ``propagate_imu_factor``, ``update_sqrt_factor``,
 ``wipe_rows_factor``, ``add_features_factor`` and ``drop_features_factor``
 keep square in, square out: each is its ``*_array`` function followed by
@@ -59,7 +61,7 @@ Callers keep TF32 off (``engine.use_f32_matmul``): ``F @ L`` and
 dense-boundary wrappers (factor on entry, square on exit).
 
 Each triangularization runs in a span of the recorder
-(``utils/profiling.py``), ``vio.tria.<role>``: in ``engine.step``
+(``utils/profiling.py``), ``vio.tria.<role>``: in ``FactorForm``
 ``update`` (the array QR) and ``close`` (the step's factor made square);
 in the public square-out functions ``imu``, ``predict``, ``posterior``
 and ``wipe``.  The update counts ``skipped``: an update that a failed
@@ -75,7 +77,10 @@ from ekf_vio_tpu_torch.config import BASE_STATE_SIZE, VIOConfig
 from ekf_vio_tpu_torch.core import dynamics
 from ekf_vio_tpu_torch.core import imu as imu_mod
 from ekf_vio_tpu_torch.core import state as state_mod
-from ekf_vio_tpu_torch.core.state import FilterState
+from ekf_vio_tpu_torch.core.state import FilterState, rho_vec
+from ekf_vio_tpu_torch.core.update import (innovation_nis,
+                                           innovation_nis_per_feature)
+from ekf_vio_tpu_torch.frontend import klt
 from ekf_vio_tpu_torch.utils import profiling
 
 
@@ -403,3 +408,67 @@ def update_sqrt(state: FilterState, cfg: VIOConfig, measured_uv, meas_cov,
     semantics of ``update.update_with_feature_positions``."""
     return to_covariance(update_sqrt_factor(to_factor(state), cfg,
                                             measured_uv, meas_cov, passed))
+
+
+class FactorForm:
+    """The frame flow's operations on Σ (``filter.CovarianceForm`` lists
+    them) in factor form: ``Sigma`` holds L at a step's boundaries and the
+    carried factor F within it (module docstring).  The depth re-prime
+    wipes ρ rows of F, ``recovered_sigma`` pads diag(σ) to F's width, and
+    ``add`` ends with the step's second QR (``vio.tria.close``)."""
+
+    from_covariance = staticmethod(to_factor)
+    predict = staticmethod(predict_sqrt_array)
+    propagate_imu = staticmethod(propagate_imu_array)
+    measurement_covariance = staticmethod(klt.measurement_covariance)
+    drop = staticmethod(drop_features_factor)
+
+    def gate_nis(self, filt, cfg, cam, measured_uv):
+        return innovation_nis_per_feature(
+            filt, measured_uv, klt.measurement_covariance_metric(
+                cam.fx, cam.fy, cfg.max_features, cfg, device=filt.device),
+            factor=True)
+
+    def reprime_depths(self, filt, boot, sig_tri):
+        n, dtype = filt.n_max, filt.Sigma.dtype
+        rows = BASE_STATE_SIZE + 2 + 3 * torch.arange(n, device=filt.device)
+        return filt.replace(Sigma=wipe_rows_array(
+            filt.Sigma, rho_vec(boot.to(dtype), n),
+            rho_vec((sig_tri * sig_tri).to(dtype), n), rows=rows))
+
+    def update(self, filt, cfg, measured_uv, meas_cov, passed):
+        nis = innovation_nis(filt, measured_uv, meas_cov, passed,
+                             factor=True)
+        return update_sqrt_array(filt, cfg, measured_uv, meas_cov,
+                                 passed)[0], nis
+
+    def add(self, filt, cfg, new_uv, valid, depths, depth_vars):
+        # replenish offers at most num_features − #active candidates
+        # (frontend/replenish.py; num_features <= max_features, config),
+        # so the prior's columns compact to 3·num_features
+        return triangularize(add_features_array(
+            filt, cfg, new_uv, valid, depths=depths, depth_vars=depth_vars,
+            slots=cfg.num_features), "close")
+
+    def sigma_diag(self, filt):
+        return sigma_diag_factor(filt.Sigma)
+
+    def sigma_finite(self, filt):
+        return torch.isfinite(sigma_diag_factor(filt.Sigma)).all()
+
+    def recovered_sigma(self, filt, base_variances):
+        sig_diag = torch.cat([base_variances, torch.zeros(
+            3 * filt.n_max, dtype=filt.Sigma.dtype, device=filt.device)])
+        return dict(Sigma=torch.nn.functional.pad(
+            torch.diag(torch.sqrt(sig_diag)),
+            (0, filt.Sigma.shape[1] - filt.state_dim)))
+
+    def pos_cov(self, filt):
+        L3 = filt.Sigma[:3, :]
+        return L3 @ L3.T
+
+    def covariance(self, filt):
+        return filt.Sigma @ filt.Sigma.T
+
+
+FACTOR = FactorForm()

@@ -161,6 +161,14 @@ def slot_keep(mask: torch.Tensor, dtype) -> torch.Tensor:
     return torch.cat([head, 1.0 - mask.repeat_interleave(3).to(dtype)])
 
 
+def rho_vec(vals: torch.Tensor, n: int) -> torch.Tensor:
+    """[D] vector with ``vals`` at the ρ slots (22 + 3i + 2), else 0."""
+    z = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    return torch.cat([torch.zeros(BASE_STATE_SIZE, dtype=vals.dtype,
+                                  device=vals.device),
+                      torch.stack([z, z, vals], -1).reshape(-1)])
+
+
 def add_features(state: FilterState, cfg: VIOConfig, new_uv: torch.Tensor,
                  valid: torch.Tensor, depths: torch.Tensor | None = None,
                  depth_vars: torch.Tensor | None = None) -> FilterState:

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ekf_vio_tpu_torch.config import VIOConfig
+from ekf_vio_tpu_torch.core.state import device_constant
 from ekf_vio_tpu_torch.frontend import klt_cuda, lk_cuda
 from ekf_vio_tpu_torch.frontend.lanes import per_lane
 
@@ -458,3 +459,23 @@ def estimate_uncertainty_sample_based(prev_img, cur_img, mu_ref, mu,
     xy = torch.sum(rd * duv[None, :, 0] * duv[None, :, 1], -1) / s
     return torch.stack([torch.stack([xx, xy], -1),
                         torch.stack([xy, yy], -1)], -2)
+
+
+def measurement_covariance(cfg: VIOConfig, cam, prev_img, cur_img, prev_px,
+                           points) -> torch.Tensor:
+    """[N, 2, 2] metric R of a frame's tracks: constant, or with
+    ``klt_covariance='sample'`` the SSD response-surface estimate
+    (KLTTracker.cpp:111-175) floored at the constant value, scaled px² →
+    metric² by 1/f²."""
+    if cfg.klt_covariance != "sample":
+        return measurement_covariance_metric(
+            cam.fx, cam.fy, cfg.max_features, cfg, device=cur_img.device)
+    cov_px = estimate_uncertainty_sample_based(prev_img, cur_img, prev_px,
+                                               points)
+    eye2 = torch.eye(2, device=cur_img.device)
+    cov_px = cov_px + cfg.klt_measurement_variance_px * eye2[None]
+    scale = device_constant(
+        [1.0 / (cam.fx * cam.fx), 1.0 / (cam.fx * cam.fy),
+         1.0 / (cam.fx * cam.fy), 1.0 / (cam.fy * cam.fy)],
+        device=cur_img.device).reshape(2, 2)
+    return cov_px * scale[None]

@@ -33,7 +33,8 @@ and of M_bf's uv columns, the all-to-all block transpose that
 symmetrizes ff, and the compacted update's [22, 3N] gather.  The
 numerical recipe (jitter, masking, Joseph form, quaternion renorm,
 solve-failure guard) is that of ``core/update.py``; products run in true
-f32 (callers keep TF32 off, ``engine.use_f32_matmul``).
+f32 (callers keep TF32 off, ``engine.use_f32_matmul``).  ``SplitForm``
+hands these operations to ``engine.step`` (parallel/sharded_engine.py).
 """
 from __future__ import annotations
 
@@ -48,9 +49,11 @@ from ekf_vio_tpu_torch.core import imu as imu_mod
 from ekf_vio_tpu_torch.core import state as state_mod
 from ekf_vio_tpu_torch.core.dynamics import blk_left, blk_right
 from ekf_vio_tpu_torch.core.state import (FilterState, block_diag,
+                                          device_constant,
                                           register_dataclass_pytree)
+from ekf_vio_tpu_torch.frontend import klt
 from ekf_vio_tpu_torch.parallel.mesh import (all_gather, all_to_all_blocks,
-                                             axis)
+                                             all_true, axis)
 
 AXIS = "state"
 
@@ -72,6 +75,13 @@ class ShardedFilterState:
     @property
     def n_max(self) -> int:
         return self.feat_mu.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.bb.device
+
+    def num_active(self) -> torch.Tensor:
+        return torch.sum(self.active, dtype=torch.int32)
 
     def replace(self, **kw) -> "ShardedFilterState":
         return dataclasses.replace(self, **kw)
@@ -493,3 +503,88 @@ def sharded_propagate_imu_batch(state: ShardedFilterState, cfg: VIOConfig,
     feat_mu = torch.where(state.active[:, None], new_feat, state.feat_mu)
     return state.replace(base_mu=base_mu, feat_mu=feat_mu, bb=bb, bf=bf,
                          ff=ff, t=state.t + total_dt), qt
+
+
+class SplitForm:
+    """The frame flow's operations on Σ (``filter.CovarianceForm`` lists
+    them) on the split state, over ``mesh``'s ``state`` ranks.  Two
+    differ from the dense forms', as in the JAX package's sharded engine:
+    the update's R is the constant one whatever ``klt_covariance`` says,
+    and the update reports a mean NIS of 0 (the reference defect:
+    consistency telemetry on the dense path only).  ``sigma_diag`` is
+    bb's diagonal, the part every rank holds whole."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+
+    def predict(self, filt, cfg, dt):
+        return sharded_predict(filt, cfg, dt, self.mesh)
+
+    def propagate_imu(self, filt, cfg, batch, gravity_w, lin_base):
+        return sharded_propagate_imu_batch(filt, cfg, batch, gravity_w,
+                                           self.mesh, lin_base=lin_base)
+
+    def gate_nis(self, filt, cfg, cam, measured_uv):
+        """[N] per-feature NIS with the constant metric R (the statistic
+        of ``update.innovation_nis_per_feature``): each rank reads the 2x2
+        uv blocks of its features off the diagonal of its ff rows; one
+        all-gather assembles the [N, 2, 2] blocks."""
+        g, k, _ = axis(self.mesh, AXIS)
+        nb_feat = filt.ff.shape[0] // 3
+        rows = filt.ff.reshape(nb_feat, 3, filt.n_max, 3)[:, :2, :, :2]
+        mine = torch.arange(nb_feat, device=rows.device) + k * nb_feat
+        Suv = all_gather(rows[torch.arange(nb_feat), :, mine], g, dim=0)
+        r = cfg.klt_measurement_variance_px
+        Rm = device_constant([r / (cam.fx * cam.fx), 0.0, 0.0,
+                              r / (cam.fy * cam.fy)],
+                             device=Suv.device).reshape(2, 2)
+        S = Suv + Rm[None]
+        y = measured_uv - filt.feat_mu[:, :2]
+        det = torch.clamp(S[:, 0, 0] * S[:, 1, 1] - S[:, 0, 1] * S[:, 1, 0],
+                          min=1e-30)
+        return (S[:, 1, 1] * y[:, 0] ** 2 - 2 * S[:, 0, 1] * y[:, 0] * y[:, 1]
+                + S[:, 0, 0] * y[:, 1] ** 2) / det
+
+    def measurement_covariance(self, cfg, cam, prev_img, cur_img, prev_px,
+                               points):
+        return klt.measurement_covariance_metric(
+            cam.fx, cam.fy, cfg.max_features, cfg, device=cur_img.device)
+
+    def reprime_depths(self, filt, boot, sig_tri):
+        zb = torch.zeros_like(boot)
+        wipe3 = torch.stack([zb, zb, boot], -1).reshape(-1)
+        zf = torch.zeros_like(sig_tri)
+        diag3 = torch.stack(
+            [zf, zf, torch.where(boot, sig_tri * sig_tri, 0.0)], -1)
+        return sigma_slot_reset(filt, wipe3, diag3.to(filt.bb.dtype),
+                                self.mesh)
+
+    def update(self, filt, cfg, measured_uv, meas_cov, passed):
+        filt = sharded_update(filt, cfg, measured_uv, meas_cov, passed,
+                              self.mesh)
+        return filt, torch.zeros((), dtype=torch.float32, device=filt.device)
+
+    def drop(self, filt, mask):
+        return sharded_drop_features(filt, mask, self.mesh)
+
+    def add(self, filt, cfg, new_uv, valid, depths, depth_vars):
+        return sharded_add_features(filt, cfg, new_uv, valid, self.mesh,
+                                    depths=depths, depth_vars=depth_vars)
+
+    def sigma_diag(self, filt):
+        return torch.diagonal(filt.bb)
+
+    def sigma_finite(self, filt):
+        """Finite on every rank: bb's diagonal and, all-reduced, the
+        diagonal entries of each rank's ff rows."""
+        g, k, _ = axis(self.mesh, AXIS)
+        ff_diag = filt.ff.diagonal(k * filt.ff.shape[0])
+        return (torch.isfinite(torch.diagonal(filt.bb)).all()
+                & all_true(torch.isfinite(ff_diag).all(), g))
+
+    def recovered_sigma(self, filt, base_variances):
+        return dict(bb=torch.diag(base_variances),
+                    bf=torch.zeros_like(filt.bf), ff=torch.zeros_like(filt.ff))
+
+    def pos_cov(self, filt):
+        return filt.bb[:3, :3]

@@ -33,6 +33,7 @@ from ekf_vio_tpu.frontend import fast as jfast
 from ekf_vio_tpu.frontend import pallas_fast as jpallas_fast
 from ekf_vio_tpu_torch import engine, interop
 from ekf_vio_tpu_torch.config import VIOConfig
+from ekf_vio_tpu_torch.core import filter as tfilt
 from ekf_vio_tpu_torch.core import imu
 from ekf_vio_tpu_torch.sim import frames as sim_frames
 from ekf_vio_tpu_torch.sim import rendered
@@ -138,7 +139,7 @@ def test_recover_tracking_lost_matches_jax():
     for lost in (True, False):
         got = engine._recover_tracking_lost(
             interop.filter_state_from_numpy(d, "cpu"), cfg,
-            torch.tensor(lost))
+            torch.tensor(lost), tfilt.COVARIANCE)
         ref = jengine._recover_tracking_lost(js, jcfg, jnp.asarray(lost))
         for k in interop.FILTER_FIELDS:
             np.testing.assert_allclose(
@@ -152,8 +153,6 @@ def test_off_slice_options_raise(option):
     step under the option runs (its parity: test_torch_sqrt_engine.py).
     What is still refused is what the JAX package refuses, ``budget``
     with ``square_root_form``."""
-    from ekf_vio_tpu_torch.core import filter as tfilt
-
     small, times = _small_frames(2)
     cam = interop.camera_from_K(K, W, H)
     cfg = VIOConfig(max_features=32, **BENCH_KW, **option)

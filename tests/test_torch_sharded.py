@@ -4,9 +4,10 @@
 sharded ops on 4 of the conftest's 8 virtual CPU devices.
 
 One spawn of 4 rank processes serves the whole module (each rank runs
-this file as a script, imports only torch, numpy and the port, and runs
-torch on one thread with ``OMP_NUM_THREADS=1``); rank 0 writes each
-case's merged result to an npz file.  The JAX oracle runs in the pytest
+this file as a script, imports only torch, numpy, the port and
+``test_torch_graph``'s host-data guard, and runs torch on one thread with
+``OMP_NUM_THREADS=1``); rank 0 writes each case's merged result to an npz
+file.  The JAX oracle runs in the pytest
 process while the ranks work.
 
 Bars, those of ``tests/test_sharded_filter.py`` for its cases (the port
@@ -18,7 +19,9 @@ update means 2e-5, Σ 1e-4 against JAX's compacted op and against the
 port's full sharded update; the engine step on the blocky 160x120 pair
 against JAX's sharded ``step``, JAX's dense ``engine.step`` and the
 port's dense ``step`` (tracked count and active equal, means atol 2e-5,
-Σ atol 5e-4); the
+Σ atol 5e-4); on the same pair with the χ² gate on, the split-form
+step's ``vio.*`` spans and counts equal to the covariance step's, and no
+host data in the split step (``test_torch_graph.NoHostData``); the
 28-frame rendered blackout on the sharded IMU engine against the port's
 dense ``run_sequence_imu`` (tracking_lost and num_tracked equal frame
 for frame, base_mu atol 2e-3; lost raised and recovered from).  The
@@ -46,6 +49,9 @@ NS = 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SLOTS = 16            # aligned_feature_capacity(14, 4)
 BLACKOUT = (14, 19)     # frames blanked in the recovery case
+# the flow case's χ² bound: between the pair's per-feature NIS values
+# (6e-4 .. 8e-4, 3% from the nearest), so the gate drops some tracks
+GATE_CHI2 = 7.2e-4
 
 
 def _mesh_step_cfgs(base):
@@ -114,6 +120,7 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
     from ekf_vio_tpu_torch.parallel import sharded_engine as se
     from ekf_vio_tpu_torch.parallel import sharded_filter as sf
     from ekf_vio_tpu_torch.sim import rendered
+    from ekf_vio_tpu_torch.utils import profiling
 
     info = multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank,
                                             platform="cpu")
@@ -226,6 +233,40 @@ def _rank_main(rank: int, world: int, port: int, workdir: str) -> None:
                     dense_num_tracked=dout.num_tracked)
 
     timed("engine_step", engine_step)
+
+    # ---- the one frame flow: the split-form step's spans and counts
+    # beside the covariance step's, and the split step under the host-data
+    # guard, with the χ² gate on
+    def flow():
+        from test_torch_graph import HostRead, NoHostData
+
+        img0, img1, K, w, h = _blocky_pair()
+        cam = interop.camera_from_K(K, w, h)
+        gcfg = cfg.replace(innovation_gate_chi2=GATE_CHI2)
+        zero, dt, frame1 = torch.tensor(0.0), torch.tensor(0.05), t(img1)
+        split0 = se.initialize(t(img0), zero, gcfg, cam, mesh)
+        dense0 = engine.initialize(t(img0), zero, gcfg, cam, device="cpu")
+        steps = {
+            "split": lambda: se.step(split0, frame1, dt, gcfg, cam, mesh),
+            "covariance": lambda: engine.step(dense0, frame1, dt, gcfg, cam)}
+        res = {}
+        for form, run in steps.items():
+            with profiling.recording() as rec:
+                run()
+                tr = rec.flush()
+            res[f"{form}_spans"] = np.array([
+                sp.name for sp in sorted(tr.host, key=lambda sp: sp.start_ns)])
+            res[f"{form}_counts"] = np.array([
+                f"{c.name}={c.value}" for c in tr.counts])
+        try:
+            with NoHostData():
+                se.step(split0, frame1, dt, gcfg, cam, mesh)
+            res["host_read"] = ""
+        except HostRead as e:
+            res["host_read"] = str(e)
+        save("flow", **res)
+
+    timed("flow", flow)
 
     # ---- the rendered blackout on the sharded mono-inertial engine
     def blackout():
@@ -578,6 +619,28 @@ def test_full_sharded_engine_step_matches_jax(ranks, jcfg, jmesh):
         np.testing.assert_allclose(got["feat_mu"], want["feat_mu"],
                                    atol=2e-5)
         np.testing.assert_allclose(got["Sigma"], want["Sigma"], atol=5e-4)
+
+
+def test_split_step_records_the_covariance_steps_spans_and_counts(ranks):
+    """The sharded step is ``engine.step`` in the split form: one frame
+    records the same ``vio.*`` spans, in the same order, and the same
+    tracked / gated / lost / added counts as the covariance step on the
+    blocky pair, with the χ² gate dropping some tracks."""
+    got = ranks("flow")
+    spans = list(got["covariance_spans"])
+    assert spans[0] == "vio.step" and "vio.gates" in spans
+    assert list(got["split_spans"]) == spans
+    counts = dict(c.split("=") for c in got["covariance_counts"])
+    assert set(counts) == {"tracked", "gated", "lost", "added"}
+    assert int(counts["gated"]) > 0 and int(counts["tracked"]) > 0
+    assert list(got["split_counts"]) == list(got["covariance_counts"])
+
+
+def test_split_step_with_the_chi2_gate_builds_nothing_from_host_data(ranks):
+    """``test_torch_graph``'s host-data guard over one split-form step
+    with ``innovation_gate_chi2 > 0``: the gate's R is made on the device
+    (``state.device_constant``), so a NCCL rollout can capture it."""
+    assert str(ranks("flow")["host_read"]) == ""
 
 
 def test_sharded_blackout_recovery_matches_dense(ranks):

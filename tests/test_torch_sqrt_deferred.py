@@ -1,12 +1,13 @@
 """The factor-form step's deferred triangularization, exact on the CPU.
 
-``engine.step`` in square-root form carries a non-square factor F of Σ
-(Σ = F Fᵀ) from the IMU propagation (or the predict) to the end of
-``vio.replenish`` and runs two QRs, the update array and the close
-(``core/sqrt_filter.py``).  Here each step is held against the same step
-composed from the public square-in, square-out functions, which make L
-square after every change: five QRs a mono-inertial step (IMU, depth
-re-prime, update array, posterior, slot add), four a vision-only one.
+``engine.step`` in the factor form (``sqrt_filter.FactorForm``) carries a
+non-square factor F of Σ (Σ = F Fᵀ) from the IMU propagation (or the
+predict) to the end of ``vio.replenish`` and runs two QRs, the update
+array and the close (``core/sqrt_filter.py``).  Here each step is held
+against the same step in a composed factor form, whose operations are the
+public square-in, square-out functions, which make L square after every
+change: five QRs a mono-inertial step (IMU, depth re-prime, update array,
+posterior, slot add), four a vision-only one.
 
 The inputs are the ``euroc_mono_inertial_sqrt`` cell's at a CPU size (the
 camera halved, 128 slots, D = 406, a rendered session from the traffic
@@ -31,7 +32,6 @@ along one chain of non-square factors: predict or IMU propagation, the
 """
 import dataclasses
 import json
-import types
 from pathlib import Path
 
 import numpy as np
@@ -107,29 +107,34 @@ def _f64_state(es):
     return dataclasses.replace(es, filt=f, lin_base=es.lin_base.double())
 
 
-# the front end of a step, whose results both forms are handed
-FRONT = ("_track_and_gate", "_replenish_candidates", "_two_view_depths",
-         "_measurement_covariance")
+# the front end of a step, whose results both forms are handed (with the
+# form's measurement covariance)
+FRONT = ("_track_and_gate", "_replenish_candidates", "_two_view_depths")
 
 
-def _namespace(**over):
-    """``sqrt_filter`` as ``engine.step`` sees it, with ``over`` put in."""
-    return types.SimpleNamespace(**{
-        **{k: getattr(sqrt_filter, k) for k in dir(sqrt_filter)
-           if not k.startswith("__")}, **over})
+class Composed(sqrt_filter.FactorForm):
+    """The factor form with each carried-factor operation replaced by its
+    public square-out counterpart."""
 
+    predict = staticmethod(sqrt_filter.predict_sqrt_factor)
+    propagate_imu = staticmethod(sqrt_filter.propagate_imu_factor)
 
-# each carried-factor function replaced by its public square-out
-# counterpart
-COMPOSED = dict(
-    propagate_imu_array=sqrt_filter.propagate_imu_factor,
-    predict_sqrt_array=sqrt_filter.predict_sqrt_factor,
-    wipe_rows_array=lambda F, wipe, new_diag, rows=None:
-        sqrt_filter.wipe_rows_factor(F, wipe, new_diag),
-    update_sqrt_array=lambda *a: (sqrt_filter.update_sqrt_factor(*a), None),
-    add_features_array=lambda *a, slots=None, **kw:
-        sqrt_filter.add_features_factor(*a, **kw),
-    triangularize=lambda state, role: state)
+    def reprime_depths(self, filt, boot, sig_tri):
+        n, dtype = filt.n_max, filt.Sigma.dtype
+        return filt.replace(Sigma=sqrt_filter.wipe_rows_factor(
+            filt.Sigma, state_mod.rho_vec(boot.to(dtype), n),
+            state_mod.rho_vec((sig_tri * sig_tri).to(dtype), n)))
+
+    def update(self, filt, cfg, measured_uv, meas_cov, passed):
+        nis = update_mod.innovation_nis(filt, measured_uv, meas_cov, passed,
+                                        factor=True)
+        return sqrt_filter.update_sqrt_factor(filt, cfg, measured_uv,
+                                              meas_cov, passed), nis
+
+    def add(self, filt, cfg, new_uv, valid, depths, depth_vars):
+        return sqrt_filter.add_features_factor(
+            filt, cfg, new_uv, valid, depths=depths, depth_vars=depth_vars)
+
 
 CASES = {
     "reprime_and_fill": dict(),
@@ -160,21 +165,28 @@ def _run_case(cell, case, monkeypatch):
     def recording(name):
         def call(*a, **kw):
             out = front[name](*a, **kw)
-            if name == "_measurement_covariance" and spec.get("nan_cov"):
-                out = out.clone()
-                meas = seen["_track_and_gate"][3] & es.filt.active
-                out[int(torch.nonzero(meas)[0, 0])] = torch.nan
             if name == "_replenish_candidates" and spec.get("no_candidates"):
                 out = (out[0], torch.zeros_like(out[1]), out[2])
             seen[name] = out
             return out
         return call
 
+    def meas_cov(*a):
+        out = sqrt_filter.FACTOR.measurement_covariance(*a)
+        if spec.get("nan_cov"):
+            out = out.clone()
+            meas = seen["_track_and_gate"][3] & es.filt.active
+            out[int(torch.nonzero(meas)[0, 0])] = torch.nan
+        seen["meas_cov"] = out
+        return out
+
+    form = sqrt_filter.FactorForm()
+    form.measurement_covariance = meas_cov
     with monkeypatch.context() as m:
         for name in FRONT:
             m.setattr(engine, name, recording(name))
         engine.step(es, img, t, cfg, cam, imu_batch=batch,
-                    gravity_w=d["gravity_w"])
+                    gravity_w=d["gravity_w"], form=form)
     recorded = {name: tuple(map(_f64, v)) if isinstance(v, tuple)
                 else _f64(v) for name, v in seen.items()}
     # the tracker takes float32 points: the track result and the points
@@ -188,11 +200,13 @@ def _run_case(cell, case, monkeypatch):
 
     b64 = None if batch is None else imu_mod.ImuSample(*map(_f64, batch))
     runs = {}
-    for form, over in (("deferred", {}), ("composed", COMPOSED)):
+    for name, form in (("deferred", sqrt_filter.FactorForm()),
+                       ("composed", Composed())):
+        form.measurement_covariance = lambda *a, v=recorded["meas_cov"]: v
         roles, boots, oks = [], [], []
         qr = sqrt_filter._qr_r
         pick = engine._depth_boot_select
-        update = over.get("update_sqrt_array", sqrt_filter.update_sqrt_array)
+        update = sqrt_filter.update_sqrt_array
 
         def qr_r(pre_T, role, qr=qr):
             roles.append(role)
@@ -209,17 +223,15 @@ def _run_case(cell, case, monkeypatch):
             return out
 
         with monkeypatch.context() as m:
-            for name in FRONT:
-                m.setattr(engine, name,
-                          lambda *a, v=recorded.get(name), **kw: v)
+            for f in FRONT:
+                m.setattr(engine, f, lambda *a, v=recorded.get(f), **kw: v)
             m.setattr(sqrt_filter, "_qr_r", qr_r)
+            m.setattr(sqrt_filter, "update_sqrt_array", update_array)
             m.setattr(engine, "_depth_boot_select", boot_select)
-            m.setattr(engine, "sqrt_filter", _namespace(
-                **{**over, "update_sqrt_array": update_array}))
             es1, out = engine.step(_f64_state(es), img, t, cfg, cam,
                                    imu_batch=b64,
-                                   gravity_w=_f64(d["gravity_w"]))
-        runs[form] = dict(es=es1, out=out, roles=roles, boot=any(boots),
+                                   gravity_w=_f64(d["gravity_w"]), form=form)
+        runs[name] = dict(es=es1, out=out, roles=roles, boot=any(boots),
                           ok=oks[0])
     return runs, cfg
 
@@ -348,8 +360,8 @@ def _chain(first):
                                                           batch, g)[0])
 
     boot = f.active & (torch.arange(N) % 2 == 0)
-    wipe = engine._rho_vec(boot.double(), N)
-    var = engine._rho_vec(t(rng.uniform(0.01, 0.1, N)), N)
+    wipe = state_mod.rho_vec(boot.double(), N)
+    var = state_mod.rho_vec(t(rng.uniform(0.01, 0.1, N)), N)
     rows = BASE_STATE_SIZE + 2 + 3 * torch.arange(N)
     dense = _dense(f)
     keep = 1.0 - wipe

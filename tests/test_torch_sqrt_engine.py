@@ -151,7 +151,7 @@ def test_sqrt_engine_recover_tracking_lost_matches_jax():
     for lost in (True, False):
         got = engine._recover_tracking_lost(
             interop.filter_state_from_numpy(fields, "cpu"), VIOConfig(**kw),
-            torch.tensor(lost))
+            torch.tensor(lost), sqrt_filter.FACTOR)
         ref = jengine._recover_tracking_lost(js, JConfig(**kw),
                                              jnp.asarray(lost))
         for k in interop.FILTER_FIELDS:
